@@ -1,0 +1,148 @@
+"""Build, load and launch the hand-written CUDA kernels under csrc/.
+
+Every csrc/*.cu is compiled for sm_90a by its own nvcc process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c csrc/<name>.cu      (one per source, in parallel)
+    nvcc -shared -o _build/libkgt_kernels.so <objects>
+
+The library lands in kgl_gene_tpu_torch/_build/ (listed in .gitignore) on
+first use and is rebuilt when any source is newer than it. Nothing outside
+the package's sources is needed besides the CUDA toolkit. Nothing is built
+or loaded at import time: the CPU tests import every module.
+
+Each C entry point launches on the stream it is handed and returns the
+cudaError_t of the launch; launch() raises on any nonzero code. LAUNCHES
+counts launches per kernel name, one for each successful launch.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["LAUNCHES", "build", "check_args", "launch", "library", "reset_launches"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_PATH = BUILD_DIR / "libkgt_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int64
+# C signatures: every pointer and the stream as c_void_p, sizes as int64.
+_SIGNATURES = {
+    # coding, row_stride, B, k, lut, out, stream
+    "kgt_translate": (_P, _I, _I, _I, _P, _P, _P),
+    # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, stream
+    "kgt_wavefront": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # a, a_stride, Wa, text, text_stride, Wt, la, lb, out, B, band_k, stream
+    "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+}
+
+LAUNCHES: collections.Counter = collections.Counter()
+_lib = None
+build_log = ""
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into LIB_PATH unless it is newer than every
+    source. Returns the library's path; raises with nvcc's output on any
+    failure. The compiler's resource report is kept in build_log."""
+    global build_log
+    sources = sorted(CSRC.glob("*.cu"))
+    newest = max(p.stat().st_mtime for p in [*sources, *CSRC.glob("*.cuh")])
+    if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
+        return LIB_PATH
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp_lib = Path(tmp) / LIB_PATH.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_lib), *(str(o) for _s, o, _p in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, LIB_PATH)
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.kgt_error_string.argtypes = [ctypes.c_int]
+        lib.kgt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_args(dtype, **tensors) -> None:
+    """Raise unless every tensor lies on the card, has `dtype` and is
+    contiguous: what the kernels take."""
+    for name, x in tensors.items():
+        if x.device.type != "cuda":
+            raise ValueError(f"{name} must be on the card, got {x.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def launch(kernel: str, name: str, *args) -> None:
+    """Call C entry point `name` on the current stream, raise if the
+    launch returned an error, and count one launch of `kernel`."""
+    import torch
+
+    lib = library()
+    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        msg = lib.kgt_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    LAUNCHES[kernel] += 1

@@ -1,0 +1,1 @@
+"""Alphabets and translation tables (copies of kgl_gene_tpu/sequence)."""

@@ -1,0 +1,91 @@
+"""The port's copied tables and its isolation from JAX and the JAX
+package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from kgl_gene_tpu.sequence import alphabet as jalpha
+from kgl_gene_tpu.sequence.tables import TABLE_NAMES, amino_translation_table as jtable
+from kgl_gene_tpu_torch.sequence import alphabet as talpha
+from kgl_gene_tpu_torch.sequence.tables import amino_translation_table as ttable
+from kgl_gene_tpu_torch.sequence.tables import tables_from_numpy
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "kgl_gene_tpu_torch"
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES + ("no_such_table",))
+def test_copied_tables_equal_reference(name):
+    j, t = jtable(name), ttable(name)
+    assert t.name == j.name
+    np.testing.assert_array_equal(t.amino_lut, j.amino_lut)
+    np.testing.assert_array_equal(t.start_lut, j.start_lut)
+    np.testing.assert_array_equal(t.start_codes(), np.unique(j.amino_lut[j.start_lut]))
+
+
+@pytest.mark.parametrize("name", TABLE_NAMES)
+def test_tables_from_numpy_carries_reference_arrays(name):
+    j = jtable(name)
+    t = tables_from_numpy(j.amino_lut, j.start_lut)
+    np.testing.assert_array_equal(t.amino_lut, j.amino_lut)
+    np.testing.assert_array_equal(t.start_lut, j.start_lut)
+    assert t.amino_lut.dtype == np.uint8 and t.start_lut.dtype == bool
+
+
+def test_tables_from_numpy_rejects_bad_shapes():
+    with pytest.raises(ValueError):
+        tables_from_numpy(np.zeros(64, np.uint8), np.zeros(65, bool))
+
+
+def test_alphabet_codes_equal_reference():
+    np.testing.assert_array_equal(talpha.DNA5.COMPLEMENT, jalpha.DNA5.COMPLEMENT)
+    assert talpha.DNA5.LETTERS == jalpha.DNA5.LETTERS
+    assert talpha.AminoAcid.STOP == jalpha.AminoAcid.STOP
+    assert talpha.AminoAcid.UNKNOWN == jalpha.AminoAcid.UNKNOWN
+    np.testing.assert_array_equal(talpha.AminoAcid.CHAR_TO_CODE,
+                                  jalpha.AminoAcid.CHAR_TO_CODE)
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for mod in _imported_modules(path):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "kgl_gene_tpu"), (path, mod)
+
+
+def test_port_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['kgl_gene_tpu'] = None\n"
+        "from kgl_gene_tpu_torch.entry import entry\n"
+        "step, args = entry(device='cpu')\n"
+        "out = step(*args)\n"
+        "assert out.distance.shape == (8,)\n"
+        "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
+        "               if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
