@@ -4,10 +4,21 @@
     python3 chip_smoke.py
 
 Builds the kernels under kgl_gene_tpu_torch/csrc, holds each one against
-its plain PyTorch version on the card (exact integer equality), drives the
-port's forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
-through five configurations and checks every output against the plain
-forward on the CPU, then times the step and each kernel. It imports
+its plain PyTorch version on the card (exact integer equality), and drives
+two paths, each with the launch counts set to 0 just before and read just
+after:
+
+  1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
+     in five configurations, every output held against the plain forward
+     on the CPU;
+  2. the transcript-family analysis (kgl_gene_tpu_torch.analysis.
+     lib_seqmutation.TranscriptFamilyAnalysis) over 256 mutants of 3,000
+     bases from configuration (a): reference distances, the all-pairs
+     UPGMA tree (32,640 pairs at band 127), CIGARs and the report, each
+     held against the same analysis on the CPU; then the B5 band doubling
+     over the same pairs and batched_cigar on wide edits.
+
+Then it times the step, the family path and each kernel. It imports
 nothing of JAX or of the JAX package.
 
 Output: progress lines, then one JSON line {"kernels": [...]}, the card's
@@ -22,6 +33,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -38,6 +50,12 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 OPS_PER_S = 67e12
 MYERS_OPS_PER_BLOCK_COLUMN = 34  # 17 word ops of 64 bits, two int32 ops each
 WAVEFRONT_OPS_PER_CELL = 6       # compare, 2 adds, 2 mins, store select
+# Banded row DP per cell: compare, two adds and a min for base, an add and
+# a min for the insertion chain, two selects (j == 0, out of band); the
+# codes add two compares, three selects and the run's min and add.
+BANDED_OPS_PER_CELL = 8
+BANDED_CHOICES_OPS_PER_CELL = 15
+FAMILY_LOCAL_RECORDS = 16  # the local metric's plain CPU run is slow at 3 kb
 
 
 def log(msg):
@@ -328,6 +346,359 @@ def phase_times(dev, steps, inputs, configs):
     return rows
 
 
+def indel_mutant(rng, ref, n_sub, n_indel):
+    """ref with n_sub substitutions and n_indel 1-3 base insertions or
+    deletions at random places."""
+    s = ref.copy()
+    pos = rng.choice(len(s), n_sub, replace=False)
+    s[pos] = (s[pos] + 1 + rng.integers(0, 3, n_sub)) % 4
+    for _ in range(n_indel):
+        p = int(rng.integers(0, len(s)))
+        if rng.random() < 0.5:
+            s = np.delete(s, slice(p, p + int(rng.integers(1, 4))))
+        else:
+            s = np.insert(s, p, rng.integers(0, 4, int(rng.integers(1, 4))))
+    return s
+
+
+def pack_pairs(seqs):
+    """(B, W) int32 rows and (B,) lengths of a list of code arrays."""
+    W = max(max(len(x) for x in seqs), 1)
+    out = np.zeros((len(seqs), W), np.int32)
+    for i, x in enumerate(seqs):
+        out[i, : len(x)] = x
+    return out, np.array([len(x) for x in seqs], np.int32)
+
+
+def banded_case(rng, B):
+    """B ragged pairs at S = 3,000: reference prefixes against mutants with
+    0-140 substitutions and a few indels, unrelated pairs, la = 0, lb = 0,
+    and length gaps of 600 (beyond every band)."""
+    ref = rng.integers(0, 4, size=S).astype(np.int32)
+    a_rows, b_rows = [], []
+    for i in range(B):
+        a_rows.append(ref[: S - int(rng.integers(0, 200))])
+        b_rows.append(indel_mutant(rng, ref, int(rng.integers(0, 140)), int(rng.integers(0, 6))))
+    for i in range(4):  # unrelated
+        b_rows[i] = rng.integers(0, 4, size=S - 50 * i).astype(np.int32)
+    a_rows[4], b_rows[5] = a_rows[4][:0], b_rows[5][:0]
+    a_rows[6], b_rows[6] = a_rows[6][:0], b_rows[6][:0]
+    b_rows[7] = b_rows[7][: len(a_rows[7]) - 600]
+    a, la = pack_pairs(a_rows)
+    b, lb = pack_pairs(b_rows)
+    return a, la, b, lb
+
+
+def phase_banded_kernels(dev, errs):
+    """B5, B4 and B1's per-pair mode at wide bands against their plain
+    versions on the card."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.banded import (
+        banded_choices, banded_choices_plain, banded_distance, banded_plain,
+    )
+    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
+
+    rng = np.random.default_rng(SEED + 2)
+    a, la, b, lb = (torch.as_tensor(x, device=dev) for x in banded_case(rng, 256))
+    B = a.shape[0]
+    for k in (15, 63, 127, 511):
+        errs["banded"] = max(errs["banded"], exact(
+            f"B5 banded k={k} (B={B}, S={S}, ragged, indels, la=0, lb=0, gaps > k)",
+            banded_distance(a, la, b, lb, band_k=k), banded_plain(a, la, b, lb, k)))
+    a64, la64, b64, lb64 = (x[:64].contiguous() for x in (a, la, b, lb))
+    for k in (31, 127, 511):
+        errs["banded_choices"] = max(errs["banded_choices"], exact(
+            f"B4 banded_choices codes k={k} (B=64, S={S}, ragged, indels)",
+            banded_choices(a64, la64, b64, lb64, band_k=k),
+            banded_choices_plain(a64, la64, b64, lb64, k, max(a64.shape[1], 1))))
+    for k in (255, 511):
+        errs["myers_pool"] = max(errs["myers_pool"], exact(
+            f"B1 myers per-pair text k={k} (B={B}, S={S})",
+            myers_distance_padded(a, la, b, lb, band_k=k), myers_plain(a, la, b, lb, k)))
+    torch.cuda.synchronize()
+
+
+class HostDPCounter:
+    """Counts the batched traceback's host-DP reroutes: wraps the port's
+    legacy.compare_sequences while the block runs."""
+
+    def __enter__(self):
+        from kgl_gene_tpu_torch.analysis import legacy
+
+        self.calls = 0
+        self._legacy, self._orig = legacy, legacy.compare_sequences
+
+        def counting(*args):
+            self.calls += 1
+            return self._orig(*args)
+
+        legacy.compare_sequences = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._legacy.compare_sequences = self._orig
+
+
+def family_records(out, inputs, region):
+    """TranscriptMutateRecords of a forward step's outputs, and the
+    reference coding string."""
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptMutateRecord
+    from kgl_gene_tpu_torch.genome.features import CodingSequenceValidity as V
+    from kgl_gene_tpu_torch.sequence.alphabet import DNA5
+
+    by_code = (V.VALID_PROTEIN, V.NO_STOP_CODON, V.NONSENSE_MUTATION, V.NO_START_CODON)
+    coding = out.mutated_coding.cpu().numpy()
+    validity = out.validity_code.cpu().numpy()
+    n_var = np.asarray(inputs[2]).sum(1)
+    recs = [TranscriptMutateRecord(f"g{i:04d}", "GENE1", "GENE1.1", int(n_var[i]),
+                                   DNA5.to_string(coding[i]), by_code[int(validity[i])])
+            for i in range(coding.shape[0])]
+    ref = np.concatenate([region[lo:hi] for lo, hi in EXONS])
+    return recs, DNA5.to_string(ref)
+
+
+def cigar_lengths(cigar):
+    import re
+
+    runs = re.findall(r"(\d+)([MXDI])", cigar)
+    return (sum(int(n) for n, op in runs if op in "MXD"),
+            sum(int(n) for n, op in runs if op in "MXI"))
+
+
+def same(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name}: the card's result differs from the CPU's")
+    log(f"  {name}: equal to the CPU run")
+
+
+def phase_family(dev, records, ref, workdir):
+    """The transcript-family path on the card, counts from 0, then every
+    result against the same analysis on the CPU. Returns the launch counts
+    of the path, the all-pairs inputs and the CPU matrix."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
+    from kgl_gene_tpu_torch.classify.upgma import newick, upgma_tree
+    from kgl_gene_tpu_torch.ops.edit_distance import (
+        levenshtein_local_numpy, levenshtein_numpy, pairwise_distance_matrix,
+    )
+
+    fam = TranscriptFamilyAnalysis(records, ref, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with HostDPCounter() as host_dp:
+        dist = fam.reference_distances()
+        tree = fam.distance_tree_newick()
+        cigars = fam.reference_cigars()
+        fam.write_report(f"{workdir}/family_card.csv", cigars=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"  family path launches: {counts}; host-DP reroutes {host_dp.calls}")
+    for name in ("myers", "wavefront", "banded_choices"):
+        if counts.get(name, 0) < 1:
+            raise AssertionError(f"kernel {name} never launched on the family path")
+    if host_dp.calls:
+        raise AssertionError(f"{host_dp.calls} pairs took the host DP; distances are <= 96 < 127")
+
+    distinct = list(fam.distinct_sequences())
+    log(f"  {len(records)} records, {len(distinct)} distinct mutants, "
+        f"{len(distinct) * (len(distinct) - 1) // 2} pairs")
+    seqs, lens = fam._padded_codes(distinct)
+    ref_codes = fam._padded_codes([ref])[0][0]
+    for i in range(3):  # the numpy oracle on a few entries
+        if dist[distinct[i]] != levenshtein_numpy(seqs[i][: lens[i]], ref_codes):
+            raise AssertionError("reference distance differs from the numpy oracle")
+    for c in cigars.values():
+        if cigar_lengths(c) != (S, S):
+            raise AssertionError(f"CIGAR {c[:40]}... does not span both sequences")
+
+    cpu = TranscriptFamilyAnalysis(records, ref, device="cpu")
+    t0 = time.perf_counter()
+    dist_cpu = cpu.reference_distances()
+    same("reference_distances (global, B3)", dist, dist_cpu)
+    cig_cpu = cpu.reference_cigars()
+    same("reference_cigars (B4 + tb_walk)", cigars, cig_cpu)
+    cpu.write_report(f"{workdir}/family_cpu.csv", distances=dist_cpu, cigars=True)
+    with open(f"{workdir}/family_card.csv", "rb") as f1, open(f"{workdir}/family_cpu.csv", "rb") as f2:
+        same("write_report(cigars=True) bytes", f1.read(), f2.read())
+    # The CPU's own tree route (the exact wavefront over 32,640 pairs of
+    # 3 kb) would take hours there; the CPU reference takes the plain
+    # Myers pool at band 127 with its exact re-run, another exact route.
+    matrix = pairwise_distance_matrix(seqs, lens, band_k=127, device="cpu")
+    labels = [g[0] if len(g) == 1 else f"{g[0]}+{len(g) - 1}" for g in fam.distinct_sequences().values()]
+    same("distance_tree_newick (B1 pool, UPGMA)", tree, newick(upgma_tree(matrix, labels)))
+    if matrix[0, 1] != levenshtein_numpy(seqs[0][: lens[0]], seqs[1][: lens[1]]):
+        raise AssertionError("all-pairs entry differs from the numpy oracle")
+    log(f"    CPU reference runs {time.perf_counter() - t0:.1f} s")
+
+    n = FAMILY_LOCAL_RECORDS
+    loc = TranscriptFamilyAnalysis(records[:n], ref, metric="local", device=dev)
+    loc_cpu = TranscriptFamilyAnalysis(records[:n], ref, metric="local", device="cpu")
+    loc_dist = loc.reference_distances()
+    same(f"local reference_distances ({n} records)", loc_dist, loc_cpu.reference_distances())
+    same(f"local distance_tree_newick ({n} records)", loc.distance_tree_newick(),
+         loc_cpu.distance_tree_newick())
+    if loc_dist[distinct[0]] != levenshtein_local_numpy(seqs[0][: lens[0]], ref_codes):
+        raise AssertionError("local distance differs from the numpy oracle")
+    return counts, seqs, lens, matrix
+
+
+def phase_band_doubling(dev, seqs, lens, matrix):
+    """adaptive_banded_levenshtein (kernel B5) over the all-pairs pairs,
+    counts from 0: from band 31 it must double until the widest pair
+    distance fits (the family's mutants differ by well under 127), each
+    band one launch, and equal the matrix."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.ops.banded import adaptive_banded_levenshtein
+
+    start_k = 31
+    iu, ju = np.triu_indices(seqs.shape[0], k=1)
+    widest = int(max(matrix.max(), np.abs(lens[iu] - lens[ju]).max()))
+    bands = [start_k]
+    while bands[-1] < widest:
+        bands.append(2 * bands[-1] + 1)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    d = adaptive_banded_levenshtein(seqs[iu], lens[iu], seqs[ju], lens[ju], start_k=start_k,
+                                    device=dev)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    log(f"  band doubling over {len(iu)} pairs from band {start_k}: launches {counts}, widest "
+        f"distance {widest}, {int((d > start_k).sum())} pairs beyond band {start_k}")
+    if len(bands) < 2 or counts.get("banded", 0) != len(bands) or counts.get("wavefront", 0):
+        raise AssertionError(f"expected B5 at bands {bands} only, got {counts}")
+    exact("adaptive_banded_levenshtein vs the all-pairs matrix",
+          torch.as_tensor(d), torch.as_tensor(matrix[iu, ju].astype(np.int64)))
+    return counts
+
+
+def phase_wide_cigars(dev):
+    """batched_cigar at band 31 on pairs with 3-150 substitutions plus
+    indels and one unrelated pair, on the card and on the CPU."""
+    from kgl_gene_tpu_torch.ops.traceback import batched_cigar
+
+    rng = np.random.default_rng(SEED + 3)
+    ref = rng.integers(0, 4, size=S).astype(np.int32)
+    muts = [indel_mutant(rng, ref, n, 4) for n in (3, 10, 20, 31, 40, 63, 80, 100, 127, 150, 5)]
+    muts.append(rng.integers(0, 4, size=S).astype(np.int32))  # beyond band 511
+    b, lb = pack_pairs(muts)
+    a = np.tile(ref, (len(muts), 1))
+    la = np.full(len(muts), S, np.int32)
+    runs = {}
+    for where in (dev, "cpu"):
+        with HostDPCounter() as host_dp:
+            runs[str(where)] = (batched_cigar(a, la, b, lb, band_k=31, device=where), host_dp.calls)
+    got, want = runs[str(dev)], runs["cpu"]
+    log(f"  batched_cigar band 31, {len(muts)} pairs: host-DP reroutes card {got[1]}, CPU {want[1]}")
+    same("batched_cigar (3-150 substitutions + indels) and its reroute count", got, want)
+    if got[1] != 1:
+        raise AssertionError("expected exactly the unrelated pair on the host DP")
+    for c, m in zip(got[0], muts):
+        if cigar_lengths(c) != (S, len(m)):
+            raise AssertionError("a CIGAR does not span both sequences")
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operation and byte floors."""
+    t_ops, t_bytes = ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def wall(fn, reps=3):
+    """Median host seconds of fn() over reps calls (each ends on the host)."""
+    per = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        per.append(time.perf_counter() - t0)
+    return statistics.median(per)
+
+
+def phase_family_times(dev, records, ref, seqs, lens):
+    """Times of the family path's kernels at its shapes, of tb_walk, and
+    the path's wall times."""
+    import torch
+
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
+    from kgl_gene_tpu_torch.ops.banded import (
+        banded_choices, banded_choices_plain, banded_distance, banded_plain,
+    )
+    from kgl_gene_tpu_torch.ops.edit_distance import pairwise_distance_matrix
+    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_layout, myers_plain
+    from kgl_gene_tpu_torch.ops.traceback import tb_walk
+    from kgl_gene_tpu_torch.sequence.alphabet import DNA5
+
+    iu, ju = np.triu_indices(seqs.shape[0], k=1)
+    P = len(iu)
+    pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
+    plens = torch.as_tensor(lens, device=dev)
+    iu_t, ju_t = torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev)
+    pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
+    pla, plb = plens.index_select(0, iu_t), plens.index_select(0, ju_t)
+    sum_la = int(lens[iu].astype(np.int64).sum())
+    sum_lb = int(lens[ju].astype(np.int64).sum())
+    in_bytes = 2 * pa.numel() * 4 + 3 * P * 4
+    rows = []
+
+    k = 127
+    ms = time_cuda(lambda: banded_distance(pa, pla, pb, plb, band_k=k), 2, windows=3)
+    p_ms = time_cuda(lambda: banded_plain(pa, pla, pb, plb, k), 1, windows=1)
+    b_ms, by = bound(BANDED_OPS_PER_CELL * sum_la * (2 * k + 1), in_bytes)
+    rows.append(dict(name="banded", source="kgl_gene_tpu_torch/csrc/banded.cu",
+                     replaces="kgl_gene_tpu/ops/pallas_banded.py:76",
+                     shape=f"P={P} all pairs, S={S}, k={k}", ms=ms, plain_ms=p_ms,
+                     bound_ms=b_ms, bound_by=by))
+
+    NB = myers_layout(k)[1]
+    ms = time_cuda(lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k), 2, windows=3)
+    p_ms = time_cuda(lambda: myers_plain(pa, pla, pb, plb, k), 1, windows=1)
+    b_ms, by = bound(MYERS_OPS_PER_BLOCK_COLUMN * NB * sum_lb, in_bytes)
+    rows.append(dict(name="myers_pool", source="kgl_gene_tpu_torch/csrc/myers.cu",
+                     replaces="kgl_gene_tpu/ops/pallas_myers.py:74",
+                     shape=f"P={P} all pairs, S={S}, k={k}, per-pair text", ms=ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by))
+    del pa, pb
+
+    n = seqs.shape[0]
+    ref_t = torch.as_tensor(np.tile(DNA5.from_string(ref).astype(np.int32), (n, 1)), device=dev)
+    rl = torch.full((n,), len(ref), dtype=torch.int32, device=dev)
+    ms = time_cuda(lambda: banded_choices(ref_t, rl, pool, plens, band_k=k), 5, windows=3)
+    p_ms = time_cuda(lambda: banded_choices_plain(ref_t, rl, pool, plens, k, ref_t.shape[1]), 1,
+                     windows=1)
+    codes = banded_choices(ref_t, rl, pool, plens, band_k=k)
+    code_bytes = codes.numel()
+    b_ms, by = bound(BANDED_CHOICES_OPS_PER_CELL * len(ref) * n * (2 * k + 1),
+                     code_bytes + 2 * n * S * 4 + 2 * n * 4)
+    rows.append(dict(name="banded_choices", source="kgl_gene_tpu_torch/csrc/banded.cu",
+                     replaces="kgl_gene_tpu/ops/pallas_banded.py:185",
+                     shape=f"B={n}, S={S}, k={k}, (M, B, 2k+1) uint8 codes", ms=ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by))
+    M = max(len(ref), int(lens.max()), 1)
+    steps = int(min(len(ref) + int(lens.max()), 2 * k + 1 + (M + 252) // 253 + 8))
+    walk_ms = time_cuda(lambda: tb_walk(codes, rl, plens, band_k=k, max_steps=steps), 1, windows=3)
+    log(f"  tb_walk (plain PyTorch) B={n}, k={k}, {steps} steps: {walk_ms:.6f} ms")
+    del codes
+
+    fam = TranscriptFamilyAnalysis(records, ref, device=dev)
+    t_cig = wall(fam.reference_cigars)
+    t_tree = wall(fam.distance_tree_newick)
+    t_dist = wall(fam.reference_distances)
+    t_mat = wall(lambda: pairwise_distance_matrix(seqs, lens, band_k=127, device=dev))
+    log(f"  family wall: reference_cigars {t_cig * 1e3:.3f} ms, distance_tree_newick "
+        f"{t_tree * 1e3:.3f} ms, reference_distances {t_dist * 1e3:.3f} ms (median of 3)")
+    log(f"  all-pairs matrix (band 127): {t_mat * 1e3:.3f} ms for {P} pairs, "
+        f"{P / t_mat:.1f} pairs/s")
+    for r in rows:
+        r.update(route="cuda", library_ms=None)
+        log(f"  kernel {r['name']} at {r['shape']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+            f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library none")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -346,8 +717,11 @@ def main() -> int:
     dev = torch.device("cuda")
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    errs = {"translate": 0, "myers": 0, "wavefront": 0}
+    errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
+                          "myers_pool"), 0)
+    launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
+    t_start = time.perf_counter()
     try:
         log("phase 1: build")
         t0 = time.perf_counter()
@@ -359,32 +733,56 @@ def main() -> int:
 
         phase = "kernels against plain versions"
         log(f"phase 2: {phase}")
+        t0 = time.perf_counter()
         phase_kernels(dev, errs)
+        phase_banded_kernels(dev, errs)
+        log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
-        phase = "main path"
-        log(f"phase 3: {phase}")
+        phase = "main path: forward step"
+        log(f"phase 3a: {phase}")
+        t0 = time.perf_counter()
         rng = np.random.default_rng(SEED)
         region = gene_region(rng)
         configs = main_path_configs(rng, region)
-        launches, steps, inputs = phase_main_path(dev, configs)
-        log(f"  main path launches: {launches}")
-        for name in errs:
-            if launches.get(name, 0) < 1:
-                raise AssertionError(f"kernel {name} never launched on the main path")
+        forward, steps, inputs = phase_main_path(dev, configs)
+        log(f"  forward path launches: {forward}")
+        for name in ("translate", "myers", "wavefront"):
+            if forward.get(name, 0) < 1:
+                raise AssertionError(f"kernel {name} never launched on the forward path")
+            launches[name] = forward[name]
+        log(f"  phase 3a: {time.perf_counter() - t0:.1f} s")
+
+        phase = "main path: transcript family"
+        log(f"phase 3b: {phase}")
+        t0 = time.perf_counter()
+        cfg = "a bench B=256 K=48"
+        records, ref = family_records(steps[cfg](*inputs[cfg]), configs[cfg][1], region)
+        with tempfile.TemporaryDirectory() as workdir:
+            family, seqs, lens, matrix = phase_family(dev, records, ref, workdir)
+        launches["banded_choices"] = family["banded_choices"]
+        launches["myers_pool"] = family["myers"]
+        doubling = phase_band_doubling(dev, seqs, lens, matrix)
+        launches["banded"] = doubling["banded"]
+        phase_wide_cigars(dev)
+        log(f"  phase 3b: {time.perf_counter() - t0:.1f} s")
 
         phase = "times"
-        log(f"phase 4: {phase}")
+        log(f"phase 4: {phase} (card: {card})")
+        t0 = time.perf_counter()
         rows = phase_times(dev, steps, inputs, configs)
+        rows += phase_family_times(dev, records, ref, seqs, lens)
+        log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
         print(f"chip_smoke: phase '{phase}' failed", file=sys.stderr)
         return 1
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     report = []
     for r in rows:
         report.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": launches.get(r["name"], 0),
+            "replaces": r["replaces"], "launches": launches[r["name"]],
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

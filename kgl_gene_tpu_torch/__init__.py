@@ -5,17 +5,20 @@ torch and numpy only, never jax and nothing of kgl_gene_tpu. Its entry
 points run on the card unless the caller passes device="cpu"; with no
 card and no such request they raise.
 
-Slice in place: the population x transcript forward step
-(ops/pipeline.py make_forward_step) with hand-written CUDA kernels for
-codon translation, the anti-diagonal wavefront and banded Myers
-(csrc/, built by kernels/).
+Slices in place: the population x transcript forward step
+(ops/pipeline.py make_forward_step) and the transcript-family analysis
+(analysis/lib_seqmutation.py TranscriptFamilyAnalysis: distances, CIGARs,
+the all-pairs UPGMA tree), with hand-written CUDA kernels for codon
+translation, the anti-diagonal wavefront, banded Myers and the banded row
+DP with its traceback codes (csrc/, built by kernels/).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["int32_on", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,3 +33,11 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch versions on the CPU"
         )
     return torch.device("cuda")
+
+
+def int32_on(device, *arrays):
+    """Each array as a contiguous int32 tensor on `device` (one tensor for
+    one array): how the numpy-in entry points hand data to the kernels."""
+    out = tuple(torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=device)
+                for x in arrays)
+    return out[0] if len(out) == 1 else out

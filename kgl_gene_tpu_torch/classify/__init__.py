@@ -1,0 +1,1 @@
+"""Distance trees (copies of kgl_gene_tpu/classify)."""

@@ -49,6 +49,10 @@ _SIGNATURES = {
     "kgt_wavefront": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
     # a, a_stride, Wa, text, text_stride, Wt, la, lb, out, B, band_k, stream
     "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+    # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, band_k, stream
+    "kgt_banded": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+    # a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, B, M, band_k, stream
+    "kgt_banded_choices": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

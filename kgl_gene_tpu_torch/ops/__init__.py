@@ -1,2 +1,3 @@
-"""Device operations of the forward step: variant apply, translation,
-edit distance, and the step itself."""
+"""Device operations: variant apply, translation, edit distances (exact,
+banded, Myers, local, all-pairs), the banded traceback, and the forward
+step."""

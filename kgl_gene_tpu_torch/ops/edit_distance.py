@@ -1,10 +1,11 @@
-"""Exact Levenshtein distance: the numpy oracle and the plain batched
-anti-diagonal wavefront.
+"""Levenshtein distances: the numpy oracles, the plain batched wavefront,
+the local (infix) metric and the all-pairs matrix.
 
-Counterpart of kgl_gene_tpu/ops/edit_distance.py (levenshtein_numpy and
-_batched_levenshtein_impl). batched_levenshtein is the plain PyTorch
-version of kernel B3 (csrc/wavefront.cu, wrapped by
-ops/wavefront.batched_levenshtein_kernel).
+Counterpart of kgl_gene_tpu/ops/edit_distance.py. batched_levenshtein is
+the plain PyTorch version of kernel B3 (csrc/wavefront.cu, wrapped by
+ops/wavefront.batched_levenshtein_kernel, which is what the paths call).
+batched_levenshtein_local is plain PyTorch on any device, as the JAX
+package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -12,7 +13,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["batched_levenshtein", "levenshtein_numpy"]
+from .. import resolve_device
+
+__all__ = [
+    "PAIR_GATHER_BYTES",
+    "batched_levenshtein",
+    "batched_levenshtein_local",
+    "gathered_pairs",
+    "levenshtein_local_numpy",
+    "levenshtein_numpy",
+    "pairwise_distance_matrix",
+]
+
+# Device memory for the two int32 buffers of one chunk of gathered pairs:
+# the 32,640 pairs of 256 sequences of 3,000 bases take 783 MB, one chunk.
+PAIR_GATHER_BYTES = 1 << 30
 
 
 def levenshtein_numpy(a: np.ndarray, b: np.ndarray) -> int:
@@ -34,6 +49,86 @@ def levenshtein_numpy(a: np.ndarray, b: np.ndarray) -> int:
         np.minimum(prev[1:] + 1, prev[:-1] + cost, out=base[1:])
         prev = np.minimum.accumulate(base - js) + js
     return int(prev[n])
+
+
+def _hw_distance_numpy(query: np.ndarray, target: np.ndarray) -> int:
+    """Infix (edlib HW-mode) distance: best edit distance of `query`
+    against any substring of `target`. Row DP with D[0][j] = 0, answer =
+    min over the final row."""
+    query = np.asarray(query)
+    target = np.asarray(target)
+    m, n = len(query), len(target)
+    if m == 0:
+        return 0
+    js = np.arange(n + 1, dtype=np.int32)
+    prev = np.zeros(n + 1, dtype=np.int32)
+    base = np.empty(n + 1, dtype=np.int32)
+    for i in range(1, m + 1):
+        cost = (target != query[i - 1]).astype(np.int32)
+        base[0] = i
+        np.minimum(prev[1:] + 1, prev[:-1] + cost, out=base[1:])
+        prev = np.minimum.accumulate(base - js) + js
+    return int(prev.min())
+
+
+def levenshtein_local_numpy(a: np.ndarray, b: np.ndarray) -> int:
+    """Local (infix) Levenshtein, symmetric: the shorter sequence is the
+    query (edlib HW mode with the smaller sequence first)."""
+    if len(a) <= len(b):
+        return _hw_distance_numpy(a, b)
+    return _hw_distance_numpy(b, a)
+
+
+def batched_levenshtein_local(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
+    """Batched symmetric local (infix) distance, (B,) int32: per pair the
+    shorter sequence is the query and D[0][j] = 0 over the target; row DP
+    over query bases with the insertion chain as a cummin over target
+    columns, the answer the minimum of row len_q over columns <= len_t.
+    seq_a (B, Ma), seq_b (B, Mb) codes; lengths clamped to the widths."""
+    B = seq_a.shape[0]
+    dev = seq_a.device
+    M = max(seq_a.shape[1], seq_b.shape[1])
+
+    def pad(x):
+        x = x.to(torch.int64)
+        return torch.nn.functional.pad(x, (0, M - x.shape[1])) if x.shape[1] < M else x
+
+    la = len_a.to(torch.int64).clamp(0, seq_a.shape[1])
+    lb = len_b.to(torch.int64).clamp(0, seq_b.shape[1])
+    swap = (la > lb)[:, None]
+    q = torch.where(swap, pad(seq_b), pad(seq_a))
+    t = torch.where(swap, pad(seq_a), pad(seq_b))
+    lq = torch.minimum(la, lb)
+    lt = torch.maximum(la, lb)
+    BIG = 2 * M + 1
+    j_idx = torch.arange(M + 1, dtype=torch.int64, device=dev)
+    lane_valid = j_idx[None, :] <= lt[:, None]
+    prev = torch.zeros((B, M + 1), dtype=torch.int64, device=dev)
+    result = torch.where(lq == 0, 0, BIG)
+    for i in range(1, int(lq.max()) + 1 if B else 1):
+        cost = (t != q[:, i - 1 : i]).to(torch.int64)
+        base = torch.cat([torch.full((B, 1), i, dtype=torch.int64, device=dev),
+                          torch.minimum(prev[:, 1:] + 1, prev[:, :-1] + cost)], 1)
+        cur = torch.cummin(base - j_idx, dim=1).values + j_idx
+        row_min = torch.where(lane_valid, cur, BIG).min(1).values
+        result = torch.where(lq == i, row_min, result)
+        prev = cur
+    return result.to(torch.int32)
+
+
+def gathered_pairs(seqs, lens, iu, ju):
+    """Yield (a, la, b, lb) for chunks of the index pairs (iu, ju): rows of
+    the pool seqs (n, W) and lens (n,) gathered on their device with
+    index_select, each chunk's two row buffers within PAIR_GATHER_BYTES."""
+    dev = seqs.device
+    iu = torch.as_tensor(np.asarray(iu, dtype=np.int64), device=dev)
+    ju = torch.as_tensor(np.asarray(ju, dtype=np.int64), device=dev)
+    per_pair = 2 * seqs.element_size() * max(seqs.shape[1], 1)
+    step = max(1, PAIR_GATHER_BYTES // per_pair)
+    for lo in range(0, iu.shape[0], step):
+        i, j = iu[lo : lo + step], ju[lo : lo + step]
+        yield (seqs.index_select(0, i), lens.index_select(0, i),
+               seqs.index_select(0, j), lens.index_select(0, j))
 
 
 def batched_levenshtein(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
@@ -88,3 +183,56 @@ def batched_levenshtein(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
         result = torch.where(hit, cand.gather(1, la_col)[:, 0].to(torch.int64), result)
         diag_pp, diag_p = diag_p, cand
     return result.to(torch.int32)
+
+
+def _rerun_overflow_pairs(seq_a, len_a, seq_b, len_b, failed_k: int, device) -> np.ndarray:
+    """Exact distances for pairs that overflowed band failed_k: the Myers
+    band doubling from the next band (2k+1) on, or straight to the exact
+    wavefront when no wider band exists; the failed band never re-runs."""
+    from .myers import MYERS_BANDS, adaptive_myers_levenshtein
+    from .wavefront import wavefront_levenshtein
+
+    next_k = 2 * failed_k + 1
+    if next_k > MYERS_BANDS[-1]:
+        return wavefront_levenshtein(seq_a, len_a, seq_b, len_b, device=device)
+    return adaptive_myers_levenshtein(seq_a, len_a, seq_b, len_b, start_k=next_k,
+                                      device=device)
+
+
+def pairwise_distance_matrix(seqs, lens, band_k=None, device=None) -> np.ndarray:
+    """All-pairs Levenshtein matrix of n padded sequences (n, M), a dense
+    symmetric (n, n) float64 array, on the card unless device='cpu'.
+
+    The pool goes to the device once; pairs of the upper triangle are
+    gathered there in chunks. With band_k, every pair runs on kernel B1's
+    per-pair mode at the smallest Myers band >= band_k, and pairs outside
+    its exactness contract re-run at wider bands, then on the exact
+    wavefront (kernel B3). With band_k=None every pair runs on B3. Both
+    routes are exact."""
+    from .myers import myers_band_for, myers_pairs_device
+    from .wavefront import batched_levenshtein_kernel
+
+    dev = resolve_device(device)
+    seqs = np.asarray(seqs)
+    lens = np.asarray(lens, dtype=np.int32)
+    n = seqs.shape[0]
+    iu, ju = np.triu_indices(n, k=1)
+    out = np.zeros((n, n), dtype=np.float64)
+    pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=dev)
+    pool_lens = torch.as_tensor(lens, device=dev)
+    if band_k is not None:
+        band = myers_band_for(band_k) or 511
+        dist = myers_pairs_device(pool, pool_lens, iu, ju, band_k=band)
+        ok = (dist <= band) & (np.abs(lens[iu] - lens[ju]) <= band)
+        pending = np.nonzero(~ok)[0]
+        if pending.size:
+            bi, bj = iu[pending], ju[pending]
+            dist[pending] = _rerun_overflow_pairs(
+                seqs[bi], lens[bi], seqs[bj], lens[bj], band, dev)
+    else:
+        parts = [batched_levenshtein_kernel(*chunk)
+                 for chunk in gathered_pairs(pool, pool_lens, iu, ju)]
+        dist = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+    out[iu, ju] = dist
+    out[ju, iu] = dist
+    return out

@@ -1,7 +1,8 @@
 """Banded Levenshtein by the Myers/Hyyro bit-vector recurrence (kernel B1).
 
 Counterpart of kgl_gene_tpu/ops/pallas_myers.py (myers_distance_padded,
-myers_banded_levenshtein, myers_band_for, MYERS_BANDS, _myers_layout).
+myers_banded_levenshtein, myers_band_for, MYERS_BANDS, _myers_layout,
+myers_pairs_device and adaptive_myers_levenshtein).
 The CUDA kernel is csrc/myers.cu; myers_plain below is its plain PyTorch
 version, with the same 64-row block layout and the same band window, so
 the two agree bit for bit on every input. On a CPU tensor the wrapper runs
@@ -15,7 +16,8 @@ one. Codes are DNA5 (0..4); any other code matches nothing. Lengths are
 clamped to the array widths.
 
 Dropped from the TPU version: the bit-plane pack on the matrix unit
-(_pack_planes), the 1,024-pair padding and the optimization barrier.
+(_pack_planes, also the pool's Peq pack in the all-pairs driver), the
+1,024-pair padding and the optimization barrier.
 """
 
 from __future__ import annotations
@@ -23,14 +25,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels, resolve_device
+from .. import int32_on, kernels, resolve_device
+from .edit_distance import gathered_pairs
+from .wavefront import band_doubling
 
 __all__ = [
     "MYERS_BANDS",
+    "adaptive_myers_levenshtein",
     "myers_band_for",
     "myers_banded_levenshtein",
     "myers_distance_padded",
     "myers_layout",
+    "myers_pairs_device",
     "myers_plain",
 ]
 
@@ -176,11 +182,30 @@ def myers_banded_levenshtein(seq_a, len_a, seq_b, len_b, band_k: int = 63,
     """Host wrapper: numpy pairs in, numpy (B,) int32 distances out, on
     the card unless device='cpu'."""
     dev = resolve_device(device)
-
-    def put(x):
-        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=dev)
-
-    out = myers_distance_padded(
-        put(seq_a), put(len_a), put(seq_b), put(len_b), band_k=band_k
-    )
+    out = myers_distance_padded(*int32_on(dev, seq_a, len_a, seq_b, len_b), band_k=band_k)
     return out.cpu().numpy()
+
+
+def myers_pairs_device(seqs_dev, lens_dev, iu, ju, band_k: int = 63) -> np.ndarray:
+    """Banded Myers distances for an index-pair batch over a sequence pool
+    on its device: pattern rows seqs[iu] and per-pair texts seqs[ju] are
+    gathered there in chunks (edit_distance.PAIR_GATHER_BYTES) and run
+    through kernel B1's per-pair mode; only the indices cross from the
+    host. Returns numpy (P,) int32 under the banded contract."""
+    seqs = seqs_dev.to(torch.int32).contiguous()
+    lens = lens_dev.to(torch.int32)
+    parts = [myers_distance_padded(a, la, b, lb, band_k=band_k)
+             for a, la, b, lb in gathered_pairs(seqs, lens, iu, ju)]
+    return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+
+
+def adaptive_myers_levenshtein(seq_a, len_a, seq_b, len_b, start_k: int = 63,
+                               max_band: int = 511, device=None) -> np.ndarray:
+    """Edlib's band doubling on kernel B1: every band of MYERS_BANDS from
+    start_k to max_band in turn, each re-running only the pairs outside
+    the previous band's contract; what is left goes to the exact
+    wavefront (kernel B3). Exact for every pair."""
+    bands = [k for k in MYERS_BANDS if start_k <= k <= max_band] or [
+        max(k for k in MYERS_BANDS if k <= max_band)
+    ]
+    return band_doubling(seq_a, len_a, seq_b, len_b, bands, myers_distance_padded, device)

@@ -13,12 +13,14 @@ BLOCK_B batch quantum and the shape bucketing.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .. import kernels
+from .. import int32_on, kernels, resolve_device
 from .edit_distance import batched_levenshtein
 
-__all__ = ["MAX_KERNEL_LEN", "batched_levenshtein_kernel"]
+__all__ = ["MAX_KERNEL_LEN", "band_doubling", "batched_levenshtein_kernel",
+           "wavefront_levenshtein"]
 
 # Three int32 diagonals of Ma + 1 cells must fit one block's shared memory
 # (227 KB on Hopper).
@@ -51,3 +53,39 @@ def batched_levenshtein_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
         )
     return out
 
+
+def wavefront_levenshtein(seq_a, len_a, seq_b, len_b, device=None) -> np.ndarray:
+    """Host wrapper (pallas_batched_levenshtein's counterpart): numpy pairs
+    in, numpy (B,) int32 exact distances out, on the card unless
+    device='cpu'. seq_b may be one (1, Mb) row shared by every pair."""
+    dev = resolve_device(device)
+    out = batched_levenshtein_kernel(*int32_on(dev, seq_a, len_a, seq_b, len_b))
+    return out.cpu().numpy()
+
+
+def band_doubling(seq_a, len_a, seq_b, len_b, bands, banded, device=None) -> np.ndarray:
+    """Edlib's band doubling: banded(a, la, b, lb, band_k=k) runs for each
+    band of `bands` in turn on the pairs still outside the previous band's
+    exactness contract (result <= k and |la - lb| <= k); what is left goes
+    to the exact wavefront (kernel B3). Numpy in, numpy (B,) int32 exact
+    distances out, on the card unless device='cpu'."""
+    dev = resolve_device(device)
+    la_np = np.asarray(len_a, dtype=np.int32)
+    lb_np = np.asarray(len_b, dtype=np.int32)
+    a, la, b, lb = int32_on(dev, seq_a, la_np, seq_b, lb_np)
+    result = np.full(len(la_np), -1, dtype=np.int32)
+    pending = np.arange(len(la_np))
+    for k in bands:
+        if not len(pending):
+            break
+        sel = torch.as_tensor(pending, device=dev)
+        d = banded(a.index_select(0, sel), la.index_select(0, sel), b.index_select(0, sel),
+                   lb.index_select(0, sel), band_k=k).cpu().numpy()
+        ok = (d <= k) & (np.abs(la_np[pending] - lb_np[pending]) <= k)
+        result[pending[ok]] = d[ok]
+        pending = pending[~ok]
+    if len(pending):
+        result[pending] = wavefront_levenshtein(
+            np.asarray(seq_a)[pending], la_np[pending],
+            np.asarray(seq_b)[pending], lb_np[pending], device=dev)
+    return result

@@ -77,9 +77,17 @@ def test_port_runs_with_jax_blocked():
         "sys.modules['jax'] = None\n"
         "sys.modules['kgl_gene_tpu'] = None\n"
         "from kgl_gene_tpu_torch.entry import entry\n"
+        "from kgl_gene_tpu_torch.analysis import lib_seqmutation as fam\n"
+        "from kgl_gene_tpu_torch.genome.features import CodingSequenceValidity as V\n"
+        "import kgl_gene_tpu_torch.ops.banded, kgl_gene_tpu_torch.ops.traceback\n"
         "step, args = entry(device='cpu')\n"
         "out = step(*args)\n"
         "assert out.distance.shape == (8,)\n"
+        "recs = [fam.TranscriptMutateRecord(g, 'G', 'T', 0, s, V.VALID_PROTEIN)\n"
+        "        for g, s in (('g1', 'ATGGCGTAA'), ('g2', 'ATGCATAA'))]\n"
+        "a = fam.TranscriptFamilyAnalysis(recs, 'ATGGCATAA', device='cpu')\n"
+        "assert a.reference_cigars() == {'ATGGCGTAA': '5M1X3M', 'ATGCATAA': '2M1D6M'}\n"
+        "assert a.distance_tree_newick() == '(g2:1,g1:1):0;'\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"

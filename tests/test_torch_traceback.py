@@ -1,0 +1,196 @@
+"""The port's banded traceback (plain kernel B4 + tb_walk) and its host DP
+against the JAX package's, on the CPU, with the cases of
+test_legacy_and_device_sim.py.
+
+Inside the exactness contract the two packages' tapes are equal, code for
+code: every cell on an optimal path holds a value <= k in both band
+layouts. CIGARs are exact and equal everywhere, and so is the number of
+pairs each package sends to its host DP, counted by wrapping each
+package's compare_sequences.
+
+The JAX package's host-DP branch calls `log.info` on its `log` function
+(kgl_gene_tpu/ops/traceback.py:299) and raises AttributeError whenever a
+pair reaches it; for the test the fixture puts a `log` there that also has
+`.info`, so the reference's intended branch runs. The JAX package is not
+changed."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import kgl_gene_tpu.analysis.legacy as j_legacy
+import kgl_gene_tpu.utils.logging as j_logging
+import kgl_gene_tpu_torch.analysis.legacy as t_legacy
+from kgl_gene_tpu.ops.edit_distance import levenshtein_numpy
+from kgl_gene_tpu.ops.traceback import banded_traceback_ops as j_tapes
+from kgl_gene_tpu.ops.traceback import batched_cigar as j_cigar
+from kgl_gene_tpu.sequence.sequence import DNA5SequenceLinear
+from kgl_gene_tpu_torch.ops.banded import RUN_CAP, banded_choices
+from kgl_gene_tpu_torch.ops.traceback import banded_traceback_ops, batched_cigar
+import test_legacy_and_device_sim as legacy_cases
+
+_mutate = legacy_cases.TestBatchedTraceback()._mutate
+
+
+@pytest.fixture
+def host_dp_counts(monkeypatch):
+    """{'jax': n, 'port': n}: calls of each package's compare_sequences."""
+    counts = {"jax": 0, "port": 0}
+    for key, mod in (("jax", j_legacy), ("port", t_legacy)):
+        orig = mod.compare_sequences
+
+        def counting(*args, _orig=orig, _key=key):
+            counts[_key] += 1
+            return _orig(*args)
+
+        monkeypatch.setattr(mod, "compare_sequences", counting)
+    monkeypatch.setattr(j_logging, "log", _LogWithInfo(j_logging.log))
+    return counts
+
+
+class _LogWithInfo:
+    """The JAX package's log() that also answers log.info(...)."""
+
+    def __init__(self, log):
+        self._log = log
+
+    def __call__(self):
+        return self._log()
+
+    def info(self, msg, *args):
+        self._log().info(msg, *args)
+
+
+def _pack(seqs):
+    W = max(max(len(s) for s in seqs), 1)
+    out = np.zeros((len(seqs), W), np.uint8)
+    for i, s in enumerate(seqs):
+        out[i, : len(s)] = s
+    return out, np.array([len(s) for s in seqs], np.int32)
+
+
+def _fuzz_pairs(seed=7, n=12, S=150):
+    rng = np.random.default_rng(seed)
+    refs = [rng.integers(0, 4, size=S).astype(np.uint8) for _ in range(n)]
+    muts = [_mutate(rng, r) for r in refs]
+    a, la = _pack(refs)
+    b, lb = _pack(muts)
+    W = max(a.shape[1], b.shape[1])
+    return np.pad(a, ((0, 0), (0, W - a.shape[1]))), la, np.pad(b, ((0, 0), (0, W - b.shape[1]))), lb
+
+
+def _both(host_dp_counts, *args, **kw):
+    got = batched_cigar(*args, **kw, device="cpu")
+    want = j_cigar(*args, **kw)
+    assert got == want
+    assert host_dp_counts["port"] == host_dp_counts["jax"]
+    return got
+
+
+@pytest.mark.parametrize("band_k", [7, 31])
+def test_in_contract_tapes_equal_jax(band_k):
+    a, la, b, lb = _fuzz_pairs()
+    ops, counts = banded_traceback_ops(a, la, b, lb, band_k=band_k, device="cpu")
+    j_ops, j_counts = j_tapes(a, la, b, lb, band_k=band_k)
+    assert ops.shape == j_ops.shape and ops.dtype == j_ops.dtype
+    d = np.array([levenshtein_numpy(a[i, : la[i]], b[i, : lb[i]]) for i in range(len(la))])
+    inside = (d <= band_k) & (np.abs(la - lb) <= band_k)
+    assert inside.sum() >= 4
+    np.testing.assert_array_equal(ops[inside], j_ops[inside])
+    np.testing.assert_array_equal(counts[inside], j_counts[inside])
+
+
+def test_fuzz_parity(host_dp_counts):
+    got = _both(host_dp_counts, *_fuzz_pairs(), band_k=31)
+    a, la, b, lb = _fuzz_pairs()
+    for i in range(len(la)):
+        items = t_legacy.compare_sequences(a[i, : la[i]], b[i, : lb[i]])
+        assert got[i] == t_legacy.edit_items_to_cigar(items, int(la[i]))
+
+
+@pytest.mark.parametrize("max_band", [15, 511])
+def test_band_overflow_falls_back_exact(host_dp_counts, max_band):
+    rng = np.random.default_rng(3)
+    ref = rng.integers(0, 4, size=64).astype(np.uint8)
+    mut = rng.integers(0, 4, size=64).astype(np.uint8)  # ~48 edits >> k
+    _both(host_dp_counts, ref[None, :], [64], mut[None, :], [64], band_k=7, max_band=max_band)
+    assert host_dp_counts["port"] == (1 if max_band == 15 else 0)
+
+
+def test_cigar_length_conservation(host_dp_counts):
+    import re
+
+    rng = np.random.default_rng(11)
+    ref = rng.integers(0, 4, size=200).astype(np.uint8)
+    mut = _mutate(rng, ref)
+    W = max(len(ref), len(mut))
+    a = np.zeros((1, W), np.uint8)
+    a[0, : len(ref)] = ref
+    b = np.zeros((1, W), np.uint8)
+    b[0, : len(mut)] = mut
+    cig = _both(host_dp_counts, a, [len(ref)], b, [len(mut)], band_k=31)[0]
+    runs = re.findall(r"(\d+)([MXDI])", cig)
+    assert sum(int(n) for n, op in runs if op in "MXD") == len(ref)
+    assert sum(int(n) for n, op in runs if op in "MXI") == len(mut)
+
+
+@pytest.mark.parametrize("known_distances", [False, True])
+def test_band_doubling_and_distance_routing(host_dp_counts, known_distances):
+    rng = np.random.default_rng(8)
+    S, B = 500, 6
+    base = rng.integers(0, 4, S).astype(np.uint8)
+    seq_a = np.repeat(base[None, :], B, axis=0)
+    la = np.full(B, S, np.int32)
+    seq_b = np.zeros((B, S + 80), np.uint8)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        s = list(base)
+        for _ in range([3, 40, 100, 150, 5, 60][i]):  # spans bands 31..255
+            p = int(rng.integers(0, len(s)))
+            s[p] = int((s[p] + 1 + rng.integers(0, 3)) % 4)
+        for _ in range(4):
+            s.insert(int(rng.integers(0, len(s))), int(rng.integers(0, 4)))
+        seq_b[i, : len(s)] = s
+        lb[i] = len(s)
+    kw = {}
+    if known_distances:
+        kw["distances"] = np.array([levenshtein_numpy(seq_a[i][: la[i]], seq_b[i][: lb[i]])
+                                    for i in range(B)], np.int64)
+    _both(host_dp_counts, seq_a, la, seq_b, lb, band_k=31, **kw)
+    assert host_dp_counts["port"] == 0
+
+
+def test_match_runs_saturate():
+    """A 600-base identical pair: match runs saturate at 253 so no code
+    exceeds 255, and the walk jumps code - 2 bases per tape entry."""
+    rng = np.random.default_rng(1)
+    s = rng.integers(0, 4, size=(1, 600)).astype(np.int32)
+    n = torch.tensor([600], dtype=torch.int32)
+    codes = banded_choices(torch.as_tensor(s), n, torch.as_tensor(s), n, band_k=7)
+    assert codes.dtype == torch.uint8 and int(codes.max()) == RUN_CAP + 3
+    assert batched_cigar(s, [600], s, [600], band_k=7, device="cpu") == ["600M"]
+    ops, counts = banded_traceback_ops(s, [600], s, [600], band_k=7, device="cpu")
+    np.testing.assert_array_equal(counts[0, :3], [253, 253, 94])
+
+
+def test_pads_past_the_lengths_are_never_read():
+    a, la, b, lb = _fuzz_pairs(seed=21, n=6)
+    pa, pb = a.copy(), b.copy()
+    for i in range(len(la)):
+        pa[i, la[i]:] = pb[i, lb[i]:] = 1  # pad codes that would match
+    assert (batched_cigar(pa, la, pb, lb, band_k=31, device="cpu")
+            == batched_cigar(a, la, b, lb, band_k=31, device="cpu"))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compare_sequences_and_cigar_equal_jax(seed):
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 5, size=int(rng.integers(0, 60))).astype(np.uint8)
+    mut = _mutate(rng, ref) if len(ref) > 4 else rng.integers(0, 5, 7).astype(np.uint8)
+    got = t_legacy.compare_sequences(ref, mut)
+    want = j_legacy.compare_sequences(DNA5SequenceLinear(ref), DNA5SequenceLinear(mut))
+    assert [dataclasses.astuple(x) for x in got] == [dataclasses.astuple(x) for x in want]
+    assert (t_legacy.edit_items_to_cigar(got, len(ref))
+            == j_legacy.edit_items_to_cigar(want, len(ref)))
