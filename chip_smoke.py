@@ -18,8 +18,10 @@ after:
      held against the same analysis on the CPU; then the B5 band doubling
      over the same pairs and batched_cigar on wide edits.
 
-Then it times the step, the family path and each kernel. It imports
-nothing of JAX or of the JAX package.
+Then it times the step, the family path and each kernel; the family
+path's kernels (B5, B1's pool, B4) are first held against their plain
+versions at the shapes they are timed at. It imports nothing of JAX or of
+the JAX package.
 
 Output: progress lines, then one JSON line {"kernels": [...]}, the card's
 name and power limit from nvidia-smi, and as the last line
@@ -70,11 +72,12 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters, windows=5):
+def time_cuda(fn, iters, windows=5, warm=True):
     """Median over `windows` of the mean ms per call, CUDA events."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     per = []
     for _ in range(windows):
@@ -440,6 +443,27 @@ class HostDPCounter:
         self._legacy.compare_sequences = self._orig
 
 
+class MatrixCapture:
+    """Keeps the all-pairs matrices the family analysis computes while the
+    block runs: wraps its pairwise_distance_matrix."""
+
+    def __enter__(self):
+        from kgl_gene_tpu_torch.analysis import lib_seqmutation
+
+        self.matrices = []
+        self._mod, self._orig = lib_seqmutation, lib_seqmutation.pairwise_distance_matrix
+
+        def capturing(*args, **kwargs):
+            self.matrices.append(self._orig(*args, **kwargs))
+            return self.matrices[-1]
+
+        lib_seqmutation.pairwise_distance_matrix = capturing
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.pairwise_distance_matrix = self._orig
+
+
 def family_records(out, inputs, region):
     """TranscriptMutateRecords of a forward step's outputs, and the
     reference coding string."""
@@ -488,7 +512,7 @@ def phase_family(dev, records, ref, workdir):
     fam = TranscriptFamilyAnalysis(records, ref, device=dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with HostDPCounter() as host_dp:
+    with HostDPCounter() as host_dp, MatrixCapture() as captured:
         dist = fam.reference_distances()
         tree = fam.distance_tree_newick()
         cigars = fam.reference_cigars()
@@ -496,9 +520,12 @@ def phase_family(dev, records, ref, workdir):
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     log(f"  family path launches: {counts}; host-DP reroutes {host_dp.calls}")
-    for name in ("myers", "wavefront", "banded_choices"):
-        if counts.get(name, 0) < 1:
-            raise AssertionError(f"kernel {name} never launched on the family path")
+    expected = ("myers", "wavefront", "banded_choices")
+    if any(counts.get(name, 0) < 1 for name in expected) or any(
+            n for name, n in counts.items() if name not in expected):
+        raise AssertionError(f"expected launches of {expected} only on the family path, got {counts}")
+    if len(captured.matrices) != 1:
+        raise AssertionError(f"expected one all-pairs matrix, got {len(captured.matrices)}")
     if host_dp.calls:
         raise AssertionError(f"{host_dp.calls} pairs took the host DP; distances are <= 96 < 127")
 
@@ -527,6 +554,8 @@ def phase_family(dev, records, ref, workdir):
     # 3 kb) would take hours there; the CPU reference takes the plain
     # Myers pool at band 127 with its exact re-run, another exact route.
     matrix = pairwise_distance_matrix(seqs, lens, band_k=127, device="cpu")
+    exact("the tree's all-pairs matrix (B1 pool k=127 + re-run) vs the CPU's, every entry",
+          torch.as_tensor(captured.matrices[0]), torch.as_tensor(matrix))
     labels = [g[0] if len(g) == 1 else f"{g[0]}+{len(g) - 1}" for g in fam.distinct_sequences().values()]
     same("distance_tree_newick (B1 pool, UPGMA)", tree, newick(upgma_tree(matrix, labels)))
     if matrix[0, 1] != levenshtein_numpy(seqs[0][: lens[0]], seqs[1][: lens[1]]):
@@ -618,9 +647,21 @@ def wall(fn, reps=3):
     return statistics.median(per)
 
 
-def phase_family_times(dev, records, ref, seqs, lens):
-    """Times of the family path's kernels at its shapes, of tb_walk, and
-    the path's wall times."""
+def checked_times(name, key, errs, kern, plain, iters):
+    """Holds kern() against plain() (exact), then (kernel ms, plain ms):
+    the plain version's first call gives the compared output and warms it,
+    a second call is timed."""
+    want = plain()
+    errs[key] = max(errs[key], exact(name, kern(), want))
+    del want
+    ms = time_cuda(kern, iters, windows=3)
+    return ms, time_cuda(plain, 1, windows=1, warm=False)
+
+
+def phase_family_times(dev, records, ref, seqs, lens, errs):
+    """Times of the family path's kernels at its shapes, each first held
+    against its plain version there, of tb_walk, and the path's wall
+    times."""
     import torch
 
     from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
@@ -645,8 +686,10 @@ def phase_family_times(dev, records, ref, seqs, lens):
     rows = []
 
     k = 127
-    ms = time_cuda(lambda: banded_distance(pa, pla, pb, plb, band_k=k), 2, windows=3)
-    p_ms = time_cuda(lambda: banded_plain(pa, pla, pb, plb, k), 1, windows=1)
+    ms, p_ms = checked_times(
+        f"B5 banded k={k} (P={P} all pairs, S={S})", "banded", errs,
+        lambda: banded_distance(pa, pla, pb, plb, band_k=k),
+        lambda: banded_plain(pa, pla, pb, plb, k), 2)
     b_ms, by = bound(BANDED_OPS_PER_CELL * sum_la * (2 * k + 1), in_bytes)
     rows.append(dict(name="banded", source="kgl_gene_tpu_torch/csrc/banded.cu",
                      replaces="kgl_gene_tpu/ops/pallas_banded.py:76",
@@ -654,8 +697,10 @@ def phase_family_times(dev, records, ref, seqs, lens):
                      bound_ms=b_ms, bound_by=by))
 
     NB = myers_layout(k)[1]
-    ms = time_cuda(lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k), 2, windows=3)
-    p_ms = time_cuda(lambda: myers_plain(pa, pla, pb, plb, k), 1, windows=1)
+    ms, p_ms = checked_times(
+        f"B1 myers pool per-pair text k={k}, NB={NB} (P={P} all pairs, S={S})", "myers_pool",
+        errs, lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k),
+        lambda: myers_plain(pa, pla, pb, plb, k), 2)
     b_ms, by = bound(MYERS_OPS_PER_BLOCK_COLUMN * NB * sum_lb, in_bytes)
     rows.append(dict(name="myers_pool", source="kgl_gene_tpu_torch/csrc/myers.cu",
                      replaces="kgl_gene_tpu/ops/pallas_myers.py:74",
@@ -666,9 +711,10 @@ def phase_family_times(dev, records, ref, seqs, lens):
     n = seqs.shape[0]
     ref_t = torch.as_tensor(np.tile(DNA5.from_string(ref).astype(np.int32), (n, 1)), device=dev)
     rl = torch.full((n,), len(ref), dtype=torch.int32, device=dev)
-    ms = time_cuda(lambda: banded_choices(ref_t, rl, pool, plens, band_k=k), 5, windows=3)
-    p_ms = time_cuda(lambda: banded_choices_plain(ref_t, rl, pool, plens, k, ref_t.shape[1]), 1,
-                     windows=1)
+    ms, p_ms = checked_times(
+        f"B4 banded_choices codes k={k} (B={n}, S={S}, the family's reference vs mutants)",
+        "banded_choices", errs, lambda: banded_choices(ref_t, rl, pool, plens, band_k=k),
+        lambda: banded_choices_plain(ref_t, rl, pool, plens, k, ref_t.shape[1]), 5)
     codes = banded_choices(ref_t, rl, pool, plens, band_k=k)
     code_bytes = codes.numel()
     b_ms, by = bound(BANDED_CHOICES_OPS_PER_CELL * len(ref) * n * (2 * k + 1),
@@ -770,7 +816,7 @@ def main() -> int:
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
         rows = phase_times(dev, steps, inputs, configs)
-        rows += phase_family_times(dev, records, ref, seqs, lens)
+        rows += phase_family_times(dev, records, ref, seqs, lens, errs)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()

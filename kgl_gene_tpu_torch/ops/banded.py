@@ -24,6 +24,8 @@ kernel's even though its band reaches further to the right.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -194,11 +196,8 @@ def banded_pairs_device(seqs_dev, lens_dev, iu, ju, band_k: int = 63,
     is checked, and the results are the same either way."""
     if uniform_cap and bool((lens_dev != seqs_dev.shape[1]).any()):
         raise ValueError("uniform_cap: every length must equal the pool width")
-    seqs = seqs_dev.to(torch.int32).contiguous()
-    lens = lens_dev.to(torch.int32)
-    parts = [banded_distance(a, la, b, lb, band_k=band_k)
-             for a, la, b, lb in gathered_pairs(seqs, lens, iu, ju)]
-    return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+    return gathered_pairs(functools.partial(banded_distance, band_k=band_k),
+                          seqs_dev, lens_dev, iu, ju)
 
 
 def adaptive_banded_levenshtein(seq_a, len_a, seq_b, len_b, start_k: int = 63,

@@ -116,19 +116,25 @@ def batched_levenshtein_local(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
     return result.to(torch.int32)
 
 
-def gathered_pairs(seqs, lens, iu, ju):
-    """Yield (a, la, b, lb) for chunks of the index pairs (iu, ju): rows of
-    the pool seqs (n, W) and lens (n,) gathered on their device with
-    index_select, each chunk's two row buffers within PAIR_GATHER_BYTES."""
+def gathered_pairs(distance, seqs, lens, iu, ju) -> np.ndarray:
+    """distance(a, la, b, lb) over the index pairs (iu, ju) of a pool seqs
+    (n, W) and lens (n,) on its device: the rows are cast to int32 and
+    gathered there with index_select in chunks whose two row buffers stay
+    within PAIR_GATHER_BYTES; only the indices cross from the host.
+    Returns numpy (P,) int32."""
     dev = seqs.device
+    seqs = seqs.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32)
     iu = torch.as_tensor(np.asarray(iu, dtype=np.int64), device=dev)
     ju = torch.as_tensor(np.asarray(ju, dtype=np.int64), device=dev)
     per_pair = 2 * seqs.element_size() * max(seqs.shape[1], 1)
     step = max(1, PAIR_GATHER_BYTES // per_pair)
+    parts = []
     for lo in range(0, iu.shape[0], step):
         i, j = iu[lo : lo + step], ju[lo : lo + step]
-        yield (seqs.index_select(0, i), lens.index_select(0, i),
-               seqs.index_select(0, j), lens.index_select(0, j))
+        parts.append(distance(seqs.index_select(0, i), lens.index_select(0, i),
+                              seqs.index_select(0, j), lens.index_select(0, j)))
+    return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
 
 
 def batched_levenshtein(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
@@ -230,9 +236,7 @@ def pairwise_distance_matrix(seqs, lens, band_k=None, device=None) -> np.ndarray
             dist[pending] = _rerun_overflow_pairs(
                 seqs[bi], lens[bi], seqs[bj], lens[bj], band, dev)
     else:
-        parts = [batched_levenshtein_kernel(*chunk)
-                 for chunk in gathered_pairs(pool, pool_lens, iu, ju)]
-        dist = torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+        dist = gathered_pairs(batched_levenshtein_kernel, pool, pool_lens, iu, ju)
     out[iu, ju] = dist
     out[ju, iu] = dist
     return out

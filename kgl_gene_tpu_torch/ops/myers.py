@@ -22,6 +22,8 @@ Dropped from the TPU version: the bit-plane pack on the matrix unit
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -192,11 +194,8 @@ def myers_pairs_device(seqs_dev, lens_dev, iu, ju, band_k: int = 63) -> np.ndarr
     gathered there in chunks (edit_distance.PAIR_GATHER_BYTES) and run
     through kernel B1's per-pair mode; only the indices cross from the
     host. Returns numpy (P,) int32 under the banded contract."""
-    seqs = seqs_dev.to(torch.int32).contiguous()
-    lens = lens_dev.to(torch.int32)
-    parts = [myers_distance_padded(a, la, b, lb, band_k=band_k)
-             for a, la, b, lb in gathered_pairs(seqs, lens, iu, ju)]
-    return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+    return gathered_pairs(functools.partial(myers_distance_padded, band_k=band_k),
+                          seqs_dev, lens_dev, iu, ju)
 
 
 def adaptive_myers_levenshtein(seq_a, len_a, seq_b, len_b, start_k: int = 63,
