@@ -19,9 +19,12 @@ after:
      over the same pairs and batched_cigar on wide edits.
 
 Then it times the step, the family path and each kernel; the family
-path's kernels (B5, B1's pool, B4) are first held against their plain
-versions at the shapes they are timed at. It imports nothing of JAX or of
-the JAX package.
+path's kernels (B5, B1's pool, B4) and B3 are first held against their
+plain versions at the shapes they are timed at. B2 and B3 are timed two
+ways: host-inclusive (back-to-back calls between two events, which reads
+the host's rate of issuing them when the kernel is short) and on the
+device alone (the calls captured into one CUDA graph, events around a
+replay). It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then one JSON line {"kernels": [...]}, the card's
 name and power limit from nvidia-smi, and as the last line
@@ -31,6 +34,7 @@ is no CUDA device, when the port is missing, or when any phase fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -72,23 +76,64 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, iters, windows=5, warm=True):
-    """Median over `windows` of the mean ms per call, CUDA events."""
+def time_cuda_turns(fns, iters, windows=5, warm=True):
+    """For each fn of `fns` the median over `windows` of the mean ms per
+    call, CUDA events around `iters` back-to-back calls. The fns take
+    turns window by window, so that a host whose speed shifts during the
+    run treats them alike. Host-inclusive: when a call is shorter on the
+    card than on the host, this reads the host's rate of issuing it."""
     import torch
 
     if warm:
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    per = [[] for _ in fns]
+    for _ in range(windows):
+        for fn, times in zip(fns, per):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+    return [statistics.median(times) for times in per]
+
+
+def time_cuda(fn, iters, windows=5, warm=True):
+    """Median over `windows` of the mean ms per call, CUDA events."""
+    return time_cuda_turns([fn], iters, windows, warm)[0]
+
+
+def time_device(fns, launches, windows=5):
+    """Median over `windows` of the mean device ms per call: `launches`
+    calls, taken in turn from the list `fns`, are captured into one CUDA
+    graph and events go around one replay, so the host's rate of issuing
+    calls is not in the reading (the card's own gap between two graph
+    nodes is). Calls on different buffers whose total exceeds the 50 MB L2
+    make every call read device memory, as the bound assumes."""
+    import torch
+
+    for fn in fns:
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            fns[i % len(fns)]()
+    graph.replay()
     torch.cuda.synchronize()
     per = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
-            fn()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
-        per.append(start.elapsed_time(end) / iters)
+        per.append(start.elapsed_time(end) / launches)
     return statistics.median(per)
 
 
@@ -134,25 +179,56 @@ def phase_kernels(dev, errs):
     """Each kernel against its plain version on the card."""
     import torch
 
-    from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein
+    from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein, levenshtein_numpy
     from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
     from kgl_gene_tpu_torch.ops.variant_apply import (
-        translate_batch, translate_batch_kernel,
+        translate_batch, translate_batch_kernel, translate_kernel_body,
     )
-    from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
+    from kgl_gene_tpu_torch.ops.wavefront import (
+        MAX_KERNEL_LEN, batched_levenshtein_kernel, bitvector_plain,
+    )
+    from kgl_gene_tpu_torch.sequence.ncbi_table_data import NCBI_TABLES
     from kgl_gene_tpu_torch.sequence.tables import amino_translation_table
 
     rng = np.random.default_rng(SEED + 1)
 
-    # B2: (256, 3000) with N codons present.
-    coding = rng.integers(0, 4, size=(256, S)).astype(np.uint8)
-    coding[rng.random(coding.shape) < 0.01] = 4
-    coding_t = torch.as_tensor(coding, device=dev)
-    for name in ("NCBI_TABLE_1", "NCBI_TABLE_2"):
-        lut = torch.as_tensor(amino_translation_table(name).amino_lut, device=dev)
+    # B2: every NCBI table at the step's shape, then the shapes that reach
+    # each body of the kernel: S % 3 != 0 and a misaligned view (scalar),
+    # a ragged end of the codon stream, B = 1, k = 0. Codons holding N
+    # are present throughout.
+    def codes(B, width):
+        x = rng.integers(0, 4, size=(B, width)).astype(np.uint8)
+        x[rng.random(x.shape) < 0.01] = 4
+        return torch.as_tensor(x, device=dev)
+
+    coding_t = codes(256, S)
+    luts = {name: torch.as_tensor(amino_translation_table(name).amino_lut, device=dev)
+            for name in sorted(NCBI_TABLES)}
+    for name, lut in luts.items():
         errs["translate"] = max(errs["translate"], exact(
             f"B2 translate {name} (256, {S})",
             translate_batch_kernel(coding_t, lut), translate_batch(coding_t, lut)))
+    flat = codes(1, 256 * S + 1).reshape(-1)
+    cases = {
+        f"(4096, {S})": codes(4096, S), "(8, 120)": codes(8, 120),
+        f"(256, {S + 1})": codes(256, S + 1), f"(256, {S + 2})": codes(256, S + 2),
+        f"(1, {S})": codes(1, S), "(7, 33), ragged end": codes(7, 33),
+        "(5, 2), k = 0": codes(5, 2),
+        f"(256, {S}) view one byte off alignment": flat[1:].view(256, S),
+    }
+    bodies = {f"(256, {S})": translate_kernel_body(coding_t)}
+    lut = luts["NCBI_TABLE_1"]
+    for name, x in cases.items():
+        bodies[name] = translate_kernel_body(x)
+        errs["translate"] = max(errs["translate"], exact(
+            f"B2 translate {name}", translate_batch_kernel(x, lut), translate_batch(x, lut)))
+    log(f"  B2 bodies: {bodies}")
+    for name in (f"(256, {S})", f"(4096, {S})", "(8, 120)"):
+        if bodies[name] != "vector":
+            raise AssertionError(f"B2 took the {bodies[name]} body at the step's shape {name}")
+    for name in (f"(256, {S + 1})", f"(256, {S + 2})", f"(256, {S}) view one byte off alignment"):
+        if bodies[name] != "scalar":
+            raise AssertionError(f"B2 took the {bodies[name]} body at {name}")
 
     # B1: shared text, bands 31/63/127 at S = 3000, B = 256, ragged la/lb,
     # lb = 0, la = 0, pairs far outside the band.
@@ -197,6 +273,80 @@ def phase_kernels(dev, errs):
     errs["wavefront"] = max(errs["wavefront"], exact(
         f"B3 wavefront ragged (B=64, S={S})",
         batched_levenshtein_kernel(*args), batched_levenshtein(*args)))
+
+    # B3 with one shared b row and ragged lengths on both sides (la = 0,
+    # lb = 0 among them), then empty widths and an empty batch.
+    args = [a_t, la_t, ref_t, lb_t]
+    errs["wavefront"] = max(errs["wavefront"], exact(
+        f"B3 wavefront shared b, ragged la and lb (B={B}, S={S})",
+        batched_levenshtein_kernel(*args), batched_levenshtein(*args)))
+    for name, rows, wa, wb in (("Ma = 0", 3, 0, 7), ("Mb = 0", 3, 7, 0), ("B = 0", 0, 7, 7)):
+        args = [torch.as_tensor(rng.integers(0, 4, size=(rows, wa)).astype(np.int32), device=dev),
+                torch.full((rows,), wa, dtype=torch.int32, device=dev),
+                torch.as_tensor(rng.integers(0, 4, size=(rows, wb)).astype(np.int32), device=dev),
+                torch.full((rows,), wb, dtype=torch.int32, device=dev)]
+        errs["wavefront"] = max(errs["wavefront"], exact(
+            f"B3 wavefront {name}", batched_levenshtein_kernel(*args), batched_levenshtein(*args)))
+
+    # B3 on the ragged set B5 is held on below: indels, la = 0, lb = 0,
+    # unrelated pairs, length gaps of 600, per-pair b.
+    args = [torch.as_tensor(x, device=dev)
+            for x in banded_case(np.random.default_rng(SEED + 2), 256)]
+    errs["wavefront"] = max(errs["wavefront"], exact(
+        f"B3 wavefront (B=256, S={S}, ragged, indels, la=0, lb=0, unrelated, gaps of 600)",
+        batched_levenshtein_kernel(*args), batched_levenshtein(*args)))
+
+    # Codes outside 0..31 and negative (the match word built on the spot),
+    # Ma != Mb, la on block edges: against the word-level plain version and
+    # the cell-level one.
+    pool = np.array([-7, -1, 0, 3, 31, 32, 33, 1000, 2 ** 31 - 1, -(2 ** 31)])
+    o_ref = rng.choice(pool, 330)
+    o_a = np.tile(o_ref[:300], (64, 1))
+    hit = rng.random(o_a.shape) < 0.08
+    o_a[hit] = rng.choice(pool, int(hit.sum()))
+    o_b = np.tile(o_ref, (64, 1))
+    o_b[:4] = rng.choice(pool, (4, 330))
+    o_la = rng.integers(0, 301, 64)
+    o_la[:8] = (63, 64, 65, 127, 128, 129, 192, 300)
+    o_lb = rng.integers(200, 331, 64)
+    args = [torch.as_tensor(np.asarray(x, dtype=np.int32), device=dev)
+            for x in (o_a, o_la, o_b, o_lb)]
+    got = batched_levenshtein_kernel(*args)
+    errs["wavefront"] = max(
+        errs["wavefront"],
+        exact("B3 wavefront vs its word-level plain version, codes negative and >= 32 "
+              "(B=64, Ma=300, Mb=330)", got, bitvector_plain(*args)),
+        exact("B3 wavefront vs the cell-level plain version, same pairs",
+              got, batched_levenshtein(*args)))
+
+    # Several stripes of 32 blocks (M = 4,200: 66 blocks) and dynamic
+    # shared memory above 48 KB (M = 12,300: 193 blocks, 55 KB).
+    for M, B in ((4200, 8), (12300, 4)):
+        w_ref = rng.integers(0, 4, size=M).astype(np.int32)
+        rows_a = [w_ref[: M - int(rng.integers(0, 300))] for _ in range(B)]
+        rows_b = [indel_mutant(rng, w_ref, int(rng.integers(0, 200)), 6)[:M] for _ in range(B)]
+        rows_b[0] = rng.integers(0, 4, size=M - 100).astype(np.int32)  # unrelated
+        w_a, w_la = pack_pairs(rows_a)
+        w_b, w_lb = pack_pairs(rows_b)
+        args = [torch.as_tensor(x, device=dev) for x in (w_a, w_la, w_b, w_lb)]
+        errs["wavefront"] = max(errs["wavefront"], exact(
+            f"B3 wavefront (B={B}, M={M}, ragged, indels, one unrelated pair)",
+            batched_levenshtein_kernel(*args), batched_levenshtein(*args)))
+    # The widest shape the kernel's shared memory holds (all 227 KB, ten
+    # stripes of 64 blocks), against the numpy oracle: the plain version
+    # would take minutes. 2,000 text columns keep the oracle short.
+    M = MAX_KERNEL_LEN
+    w_a = rng.integers(0, 4, size=(1, M)).astype(np.int32)
+    w_b = np.roll(w_a, -20000, axis=1)  # the text: 2,000 bases from mid-pattern
+    pos = rng.choice(2000, 100, replace=False)
+    w_b[0, pos] = (w_b[0, pos] + 1) % 4
+    w_la, w_lb = np.array([M], np.int32), np.array([2000], np.int32)
+    got = batched_levenshtein_kernel(
+        *(torch.as_tensor(x, device=dev) for x in (w_a, w_la, w_b, w_lb)))
+    want = levenshtein_numpy(w_a[0, : w_la[0]], w_b[0, : w_lb[0]])
+    errs["wavefront"] = max(errs["wavefront"], exact(
+        f"B3 wavefront at MAX_KERNEL_LEN (B=1, Ma=Mb={M}, lb=2000) vs the numpy oracle",
+        got, torch.as_tensor([want])))
     torch.cuda.synchronize()
 
 
@@ -265,13 +415,13 @@ def phase_main_path(dev, configs):
     return total, steps, inputs
 
 
-def phase_times(dev, steps, inputs, configs):
+def phase_times(dev, steps, inputs, configs, errs):
     import torch
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein
     from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
     from kgl_gene_tpu_torch.ops.variant_apply import (
-        _codon_index, translate_batch, translate_batch_kernel,
+        _codon_index, translate_batch, translate_batch_kernel, translate_kernel_body,
     )
     from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
     from kgl_gene_tpu_torch.sequence.tables import amino_translation_table
@@ -307,22 +457,54 @@ def phase_times(dev, steps, inputs, configs):
     idx = _codon_index(coding)
     torch.cuda.synchronize()
 
+    # B2 beside lut[idx], at the step's two batch sizes, timed both ways.
+    # lut[idx] is the nearest single PyTorch call, not the same function:
+    # it reads a ready int64 index (8 bytes a codon) and leaves out the
+    # codon indexing that B2 does.
     k = S // 3
     rows = []
-    t_ms = time_cuda(lambda: translate_batch_kernel(coding, lut), 200)
-    p_ms = time_cuda(lambda: translate_batch(coding, lut), 50)
-    l_ms = time_cuda(lambda: lut[idx], 200)
-    nbytes = B * S + B * k + 65
-    rows.append(dict(
-        name="translate", route="cuda", source="kgl_gene_tpu_torch/csrc/translate.cu",
-        replaces="kgl_gene_tpu/ops/variant_apply.py:95", shape=f"({B}, {S}) uint8",
-        ms=t_ms, plain_ms=p_ms, library_ms=l_ms,
-        bound_ms=max(nbytes / MEM_BYTES_PER_S, B * k * 8 / OPS_PER_S) * 1e3,
-        bound_by="bytes"))
+    coding_b = steps["b population B=4096 K=48"](*inputs["b population B=4096 K=48"]).mutated_coding
+    for cod in (coding, coding_b):
+        n = cod.shape[0]
+        cod_idx = idx if cod is coding else _codon_index(cod)
+        if translate_kernel_body(cod) != "vector":
+            raise AssertionError(f"B2 does not take the vector body on the step's ({n}, {S}) coding")
+        errs["translate"] = max(errs["translate"], exact(
+            f"B2 translate on the step's coding ({n}, {S})",
+            translate_batch_kernel(cod, lut), translate_batch(cod, lut)))
+        # Copies to rotate over, so that a call finds its input in device
+        # memory and not in L2: 64 MB of inputs, or 64 copies.
+        copies = min(64, (64 << 20) // cod.numel() + 1)
+        cods = [cod.clone() for _ in range(copies)]
+        idxs = [cod_idx.clone() for _ in range(min(copies, (64 << 20) // (8 * cod_idx.numel()) + 1))]
+        kern_calls = [functools.partial(translate_batch_kernel, c, lut) for c in cods]
+        lib_calls = [functools.partial(lut.__getitem__, i) for i in idxs]
+        ms, library_ms = time_cuda_turns([kern_calls[0], lib_calls[0]], 200, windows=9)
+        t = dict(
+            ms=ms,
+            device_ms=time_device(kern_calls, 2 * copies),
+            device_warm_ms=time_device(kern_calls[:1], 50),
+            plain_ms=time_cuda(lambda: translate_batch(cod, lut), 50),
+            library_ms=library_ms,
+            library_device_ms=time_device(lib_calls, 2 * len(lib_calls)),
+            library_device_warm_ms=time_device(lib_calls[:1], 50),
+            bound_ms=bound(n * k * 8, n * S + n * k + 65)[0])
+        del cods, idxs, kern_calls, lib_calls
+        log(f"  B2 translate ({n}, {S}): host-inclusive {t['ms']:.6f} ms; device {t['device_ms']:.6f} ms "
+            f"over {copies} rotating inputs, {t['device_warm_ms']:.6f} ms on one input (in L2); bound "
+            f"{t['bound_ms']:.6f} ms (bytes), device/bound {t['device_ms'] / t['bound_ms']:.2f}")
+        log(f"  lut[idx] ({n}, {S // 3}) int64 index: host-inclusive {t['library_ms']:.6f} ms; device "
+            f"{t['library_device_ms']:.6f} ms rotating, {t['library_device_warm_ms']:.6f} ms in L2; "
+            f"B2's plain version {t['plain_ms']:.6f} ms")
+        if cod is coding:
+            rows.append(dict(
+                name="translate", route="cuda", source="kgl_gene_tpu_torch/csrc/translate.cu",
+                replaces="kgl_gene_tpu/ops/variant_apply.py:95", shape=f"({n}, {S}) uint8",
+                bound_by="bytes", **t))
 
     NB = 3  # band 63
     m_ms = time_cuda(lambda: myers_distance_padded(a32, lens, ref_t, lens, band_k=63), 20)
-    mp_ms = time_cuda(lambda: myers_plain(a32, lens, ref_t, lens, 63), 1, windows=3)
+    mp_ms = time_cuda(lambda: myers_plain(a32, lens, ref_t, lens, 63), 1, windows=1)
     ops = B * S * NB * MYERS_OPS_PER_BLOCK_COLUMN
     nbytes = B * S * 4 + S * 4 + 3 * B * 4
     rows.append(dict(
@@ -333,16 +515,22 @@ def phase_times(dev, steps, inputs, configs):
         bound_by="operations" if ops / OPS_PER_S >= nbytes / MEM_BYTES_PER_S else "bytes"))
 
     Bd = d32.shape[0]
-    w_ms = time_cuda(lambda: batched_levenshtein_kernel(d32, lens_d, ref_t, lens_d), 10)
-    wp_ms = time_cuda(lambda: batched_levenshtein(d32, lens_d, ref_t, lens_d), 1, windows=3)
-    ops = Bd * S * S * WAVEFRONT_OPS_PER_CELL
-    nbytes = Bd * S * 4 + S * 4 + 3 * Bd * 4
+    w_ms, wp_ms = checked_times(
+        f"B3 wavefront (B={Bd}, S={S}, configuration (d)'s mutants vs the shared reference)",
+        "wavefront", errs, lambda: batched_levenshtein_kernel(d32, lens_d, ref_t, lens_d),
+        lambda: batched_levenshtein(d32, lens_d, ref_t, lens_d), 10)
+    wd_ms = time_device([lambda: batched_levenshtein_kernel(d32, lens_d, ref_t, lens_d)], 5)
+    # The kernel's work is block steps (64 rows of one column each); the
+    # cell count is what the anti-diagonal kernel before it was set against.
+    b_ms, by = bound(Bd * -(-S // 64) * S * MYERS_OPS_PER_BLOCK_COLUMN,
+                     Bd * S * 4 + S * 4 + 3 * Bd * 4)
+    cell_ms = Bd * S * S * WAVEFRONT_OPS_PER_CELL / OPS_PER_S * 1e3
+    log(f"  B3 wavefront: device {wd_ms:.6f} ms; bound by block steps {b_ms:.6f} ms, "
+        f"by cells (the earlier kernel's) {cell_ms:.6f} ms")
     rows.append(dict(
         name="wavefront", route="cuda", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
         replaces="kgl_gene_tpu/ops/pallas_edit_distance.py:36", shape=f"B={Bd} S={S} shared reference",
-        ms=w_ms, plain_ms=wp_ms, library_ms=None,
-        bound_ms=max(ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if ops / OPS_PER_S >= nbytes / MEM_BYTES_PER_S else "bytes"))
+        ms=w_ms, device_ms=wd_ms, plain_ms=wp_ms, library_ms=None, bound_ms=b_ms, bound_by=by))
     for r in rows:
         log(f"  kernel {r['name']} at {r['shape']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library {r['library_ms']}")
@@ -658,12 +846,13 @@ def checked_times(name, key, errs, kern, plain, iters):
     return ms, time_cuda(plain, 1, windows=1, warm=False)
 
 
-def phase_family_times(dev, records, ref, seqs, lens, errs):
+def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     """Times of the family path's kernels at its shapes, each first held
     against its plain version there, of tb_walk, and the path's wall
     times."""
     import torch
 
+    from kgl_gene_tpu_torch import kernels
     from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
     from kgl_gene_tpu_torch.ops.banded import (
         banded_choices, banded_choices_plain, banded_distance, banded_plain,
@@ -671,6 +860,7 @@ def phase_family_times(dev, records, ref, seqs, lens, errs):
     from kgl_gene_tpu_torch.ops.edit_distance import pairwise_distance_matrix
     from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_layout, myers_plain
     from kgl_gene_tpu_torch.ops.traceback import tb_walk
+    from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
     from kgl_gene_tpu_torch.sequence.alphabet import DNA5
 
     iu, ju = np.triu_indices(seqs.shape[0], k=1)
@@ -706,7 +896,31 @@ def phase_family_times(dev, records, ref, seqs, lens, errs):
                      replaces="kgl_gene_tpu/ops/pallas_myers.py:74",
                      shape=f"P={P} all pairs, S={S}, k={k}, per-pair text", ms=ms,
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=by))
+
+    # B3 over the same pairs: the all-pairs route when no band is given.
+    # Held against the matrix the family phase holds exact, not the
+    # cell-level plain version, which would take minutes at this size.
+    want = torch.as_tensor(matrix[iu, ju].astype(np.int64))
+    errs["wavefront"] = max(errs["wavefront"], exact(
+        f"B3 wavefront (P={P} all pairs, S={S}) vs the family's all-pairs matrix",
+        batched_levenshtein_kernel(pa, pla, pb, plb), want))
+    ms = time_cuda(lambda: batched_levenshtein_kernel(pa, pla, pb, plb), 3, windows=3)
+    steps_sum = int((-(-lens[iu].astype(np.int64) // 64) * lens[ju].astype(np.int64)).sum())
+    b_ms, by = bound(MYERS_OPS_PER_BLOCK_COLUMN * steps_sum, in_bytes)
+    log(f"  B3 wavefront at P={P} all pairs, S={S}: {ms:.6f} ms, bound {b_ms:.6f} ms ({by}), "
+        f"{ms / b_ms:.1f}x")
+    if b_ms > ms:
+        raise AssertionError("B3's bound reads above its time")
     del pa, pb
+    kernels.reset_launches()
+    exact_matrix = pairwise_distance_matrix(seqs, lens, band_k=None, device=dev)
+    if dict(kernels.LAUNCHES) != {"wavefront": 1}:
+        raise AssertionError(f"band_k=None route: expected one B3 launch, got {dict(kernels.LAUNCHES)}")
+    exact("pairwise_distance_matrix(band_k=None) (B3 route) vs the family's matrix, every entry",
+          torch.as_tensor(exact_matrix), torch.as_tensor(matrix))
+    t_exact = wall(lambda: pairwise_distance_matrix(seqs, lens, band_k=None, device=dev))
+    log(f"  all-pairs matrix (no band, B3): {t_exact * 1e3:.3f} ms for {P} pairs, "
+        f"{P / t_exact:.1f} pairs/s")
 
     n = seqs.shape[0]
     ref_t = torch.as_tensor(np.tile(DNA5.from_string(ref).astype(np.int32), (n, 1)), device=dev)
@@ -815,8 +1029,8 @@ def main() -> int:
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
-        rows = phase_times(dev, steps, inputs, configs)
-        rows += phase_family_times(dev, records, ref, seqs, lens, errs)
+        rows = phase_times(dev, steps, inputs, configs, errs)
+        rows += phase_family_times(dev, records, ref, seqs, lens, matrix, errs)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -826,12 +1040,17 @@ def main() -> int:
 
     report = []
     for r in rows:
+        if r["bound_ms"] > min(r["ms"], r.get("device_ms", r["ms"])):
+            print(f"chip_smoke: the bound of {r['name']} reads above its time", file=sys.stderr)
+            return 1
         report.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("device_ms", "device_warm_ms", "library_device_ms",
+                                       "library_device_warm_ms") if key in r},
         })
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())

@@ -9,8 +9,8 @@ Slices in place: the population x transcript forward step
 (ops/pipeline.py make_forward_step) and the transcript-family analysis
 (analysis/lib_seqmutation.py TranscriptFamilyAnalysis: distances, CIGARs,
 the all-pairs UPGMA tree), with hand-written CUDA kernels for codon
-translation, the anti-diagonal wavefront, banded Myers and the banded row
-DP with its traceback codes (csrc/, built by kernels/).
+translation, exact Levenshtein by full-width bit vectors, banded Myers and
+the banded row DP with its traceback codes (csrc/, built by kernels/).
 """
 
 from __future__ import annotations

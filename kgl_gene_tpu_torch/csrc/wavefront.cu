@@ -1,77 +1,232 @@
-// Kernel B3: exact Levenshtein distance by an anti-diagonal wavefront.
+// Kernel B3: exact Levenshtein distance by full-width bit vectors.
 //
 // Replaces the TPU kernel _levenshtein_kernel (kgl_gene_tpu/ops/
 // pallas_edit_distance.py:36, launched by _pallas_call). Per pair it
-// computes D[la][lb] of the textbook DP over a[0:la] and b[0:lb]; every
-// cell of one anti-diagonal d = i + j depends only on the two diagonals
-// before it, so the cells of a diagonal update together.
+// computes D[la][lb] of the unit-cost DP over a[0:la] and b[0:lb], exactly,
+// for every pair: no band, no contract. Codes are compared as int32 values,
+// whatever the alphabet.
 //
-// Bound on the card: operations. Each cell costs a few integer operations
-// and the inputs are read from cache, so the least time is the pair's
-// (la+1)(lb+1) cells times those operations over the card's integer
-// rate; the bytes (the two sequences) are small beside that.
+// Algorithm. The Myers/Hyyro block recurrence of csrc/myers.cu at full
+// width: the pattern a is cut into ceil(la / 64) blocks of 64 rows, each
+// holding the vertical deltas of one DP column as two 64-bit words (VP,
+// VN). One text column updates a block with ~17 word operations and hands
+// the horizontal delta of its last row (two bits) to the block below. That
+// is 64 DP cells per block step where the anti-diagonal wavefront this
+// kernel replaced did one cell per operation, three shared-memory reads
+// per cell and a block barrier per diagonal.
 //
-// Design: one thread block per pair, its threads across the cells of a
-// diagonal. The TPU kernel batched pairs across sublanes and carried three
-// full-width diagonals in VMEM; here the three diagonal buffers live in
-// the block's shared memory (12 * (M + 1) bytes, 36 KB at M = 3000;
-// dynamic shared memory above 48 KB) and rotate by pointer. A block walks
-// only the cells of its own pair that lie inside [0, la] x [0, lb] and
-// stops at its own d = la + lb, so ragged pairs cost what they need; the
-// TPU's lane-reversed b, 128-lane padding and batch quantum are gone.
-// Lengths are clamped to the array widths; la + lb < 2 returns la + lb.
+// Bound on the card: operations, 34 int32 operations per block step over
+// Σ ceil(la / 64) * lb block steps; the bytes (the sequences, read once)
+// are small beside that. At a few hundred pairs the kernel is far above
+// that bound all the same: a pair's block steps form a dependent chain
+// (each needs the carry of the block above and its own previous column),
+// so a pair costs (lb + 63) * ceil(la / 4096) steps on one warp however
+// many SMs idle. With thousands of pairs it is bound by the rate the SMs
+// dispatch at: ~75 SASS operations a block step where the count above
+// has 34.
+//
+// Design: one warp per pair, and the block is that warp, so no
+// __syncthreads anywhere and a pair that ends early stalls nobody. The
+// blocks of a pair are spread over the lanes: lane t holds K blocks at
+// once (K = 1 up to 2,048 rows, else 2), block 32 k + t in slot k, their
+// VP/VN in registers, and at step s slot k works on text column
+// s - t - 32 k. The carry bits and the text symbol come from the lane
+// above by a rotating __shfl_sync, lane 0's slot k taking what lane 31's
+// slot k - 1 left: a systolic skew over 32 K blocks, lb + 32 K - 1 steps.
+// A warp alone on its scheduler runs in program order, so a step costs
+// what the latencies of its operations add up to; the K recurrences of a
+// lane are independent, the loop body has no branch between them (idle
+// slots are switched off by selects), and the compiler interleaves them.
+// Patterns
+// above 2,048 K rows go in stripes of 32 K blocks: lane 31's last slot
+// leaves its carries in shared memory, one byte a column, and lane 0
+// reads them in the next stripe (two buffers, one __syncwarp per stripe;
+// stripe 0 reads +1 everywhere, D[0][j] - D[0][j-1]). Lane 0 takes its
+// symbol from a 32-column chunk of b that the warp loads coalesced 32
+// steps ahead (b is read once per warp, also when it is the one row
+// shared by all pairs). Nothing follows row la column by column: after
+// column lb each block's VP/VN hold that column's vertical deltas, so
+// D[la][lb] = lb + sum over rows <= la of (VP - VN), two popcounts a
+// block and one warp reduction at the end.
+//
+// Equality over all int32 codes. Match words Peq[c][block] for symbols
+// 0 <= c < SIGMA (32: DNA5 and the amino codes) are built once per pair in
+// shared memory, 32 rows at a time with __match_any_sync (the first lane
+// of each group of equal codes stores the group's mask as half a word).
+// For any other text symbol (negative, >= SIGMA) the lane builds the match
+// word on the spot from its block's 64 pattern codes: slow, rare, exact.
+// Rows >= la match nothing. Shared memory: SIGMA * 8 bytes per pattern
+// block (padded to an odd block count against bank conflicts) plus 2
+// bytes per text column; 18.2 KB at 3 kb, so 12 pairs an SM; above 48 KB
+// as dynamic shared memory (ops/wavefront.py checks the 227 KB limit).
+// Lengths are clamped to the array widths; la = 0 or lb = 0 returns la + lb.
 #include "common.cuh"
 
-__global__ void wavefront_kernel(const int32_t* __restrict__ a,
-                                 int64_t a_stride, int Wa,
-                                 const int32_t* __restrict__ b,
-                                 int64_t b_stride, int Wb,
-                                 const int32_t* __restrict__ la_arr,
-                                 const int32_t* __restrict__ lb_arr,
-                                 int32_t* __restrict__ out, int width) {
-  extern __shared__ int32_t smem[];
+typedef unsigned long long u64;
+
+constexpr int SIGMA = 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Match word of block `blk` against symbol c, from the pattern itself.
+__device__ u64 match_word(const int32_t* __restrict__ ap, int la, int blk,
+                          int c) {
+  u64 eq = 0;
+  const int base = blk * 64;
+  const int end = min(64, la - base);
+  for (int r = 0; r < end; ++r)
+    eq |= (u64)(__ldg(ap + base + r) == c) << r;
+  return eq;
+}
+
+template <int K>  // 64-row blocks a lane holds at once
+__global__ void __launch_bounds__(32)
+bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
+                 const int32_t* __restrict__ b, int64_t b_stride, int Wb,
+                 const int32_t* __restrict__ la_arr,
+                 const int32_t* __restrict__ lb_arr,
+                 int32_t* __restrict__ out, int nblk_pad, int hstride) {
+  extern __shared__ u64 smem[];
+  u64* peq = smem;  // [SIGMA][nblk_pad]
+  uint8_t* hbytes = (uint8_t*)(smem + (size_t)SIGMA * nblk_pad);  // [2][hstride]
   const int p = blockIdx.x;
+  const int lane = threadIdx.x;
   const int la = min(max(la_arr[p], 0), Wa);
   const int lb = min(max(lb_arr[p], 0), Wb);
-  const int n = la + lb;
-  if (n < 2) {
-    if (threadIdx.x == 0) out[p] = n;
+  if (la == 0 || lb == 0) {
+    if (lane == 0) out[p] = la + lb;
     return;
   }
   const int32_t* ap = a + p * a_stride;
   const int32_t* bp = b + p * b_stride;
-  int32_t* pp = smem;              // diagonal d - 2
-  int32_t* pv = smem + width;      // diagonal d - 1
-  int32_t* cur = smem + 2 * width; // diagonal d
-  if (threadIdx.x == 0) {
-    pp[0] = 0;  // D[0][0]
-    pv[0] = 1;  // D[0][1]
-    pv[1] = 1;  // D[1][0]
+  const int nblk = (la + 63) >> 6;
+
+  for (int i = lane; i < SIGMA * nblk_pad; i += 32) peq[i] = 0ull;
+  // Carries into stripe 0: D[0][j] - D[0][j-1] = +1 for every column.
+  for (int i = lane; i < hstride / 4; i += 32) ((uint32_t*)hbytes)[i] = 0x01010101u;
+  __syncwarp();
+  uint32_t* peq32 = (uint32_t*)peq;
+  for (int q = 0; q * 32 < la; ++q) {
+    const int i = q * 32 + lane;
+    const int c = i < la ? __ldg(ap + i) : -1;
+    const unsigned m = __match_any_sync(FULL, c);
+    if (i < la && (unsigned)c < (unsigned)SIGMA && __ffs(m) - 1 == lane)
+      peq32[((size_t)c * nblk_pad + (q >> 1)) * 2 + (q & 1)] = m;
   }
-  __syncthreads();
-  for (int d = 2; d <= n; ++d) {
-    const int lo = max(0, d - lb);
-    const int hi = min(la, d);
-    for (int i = lo + threadIdx.x; i <= hi; i += blockDim.x) {
-      const int j = d - i;
-      int v;
-      if (i == 0) {
-        v = j;
-      } else if (j == 0) {
-        v = i;
-      } else {
-        const int cost = __ldg(ap + i - 1) != __ldg(bp + j - 1);
-        v = min(min(pv[i - 1], pv[i]) + 1, pp[i - 1] + cost);
-      }
-      cur[i] = v;
+  __syncwarp();
+
+  const int la_blk = (la - 1) >> 6;
+  const u64 la_rows = ~0ull >> (63 - ((la - 1) & 63));  // rows <= la of la_blk
+  const int src = (lane + 31) & 31;  // the lane above; lane 31 for lane 0
+  constexpr int SPAN = 32 * K;
+  int total = 0;  // sum of my blocks' vertical deltas down column lb
+  for (int r = 0, blk0 = 0; blk0 < nblk; ++r, blk0 += SPAN) {
+    const int nact = min(SPAN, nblk - blk0);
+    const bool keeps = lane == 31 && blk0 + SPAN < nblk;  // a stripe below reads my carries
+    const uint8_t* hin = hbytes + (r & 1) * hstride;
+    uint8_t* hout = hbytes + ((r + 1) & 1) * hstride;
+    // Slot k of lane t is block blk0 + 32 k + t, at step s on column
+    // s - t - 32 k.
+    int lb_mine[K], blk[K], carry[K], c_mine[K];
+    const u64* peq_blk[K];
+    u64 vp[K], vn[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      blk[k] = blk0 + 32 * k + lane;
+      lb_mine[k] = blk[k] < nblk ? lb : 0;  // 0 switches an idle slot off
+      peq_blk[k] = peq + min(blk[k], nblk - 1);
+      vp[k] = ~0ull;
+      vn[k] = 0ull;
+      carry[k] = 0;   // bit 0: ph_out, bit 1: mh_out of the slot's last column
+      c_mine[k] = 0;  // the symbol of the slot's last column
     }
-    __syncthreads();
-    int32_t* t = pp;
-    pp = pv;
-    pv = cur;
-    cur = t;
+    int chunk = 0;
+    int ahead = lane < lb ? __ldg(bp + lane) : 0;  // the next 32 columns of b
+    const int steps = lb + nact - 1;
+    for (int s = 0; s < steps; ++s) {
+      if ((s & 31) == 0) {  // loaded 32 steps ahead of its first use
+        chunk = ahead;
+        ahead = s + 32 + lane < lb ? __ldg(bp + s + 32 + lane) : 0;
+      }
+      const int c0 = __shfl_sync(FULL, chunk, s & 31);
+      const int h0 = hin[s];  // one address for the warp; s < hstride
+      int c_up[K], h_up[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        c_up[k] = __shfl_sync(FULL, c_mine[k], src);
+        h_up[k] = __shfl_sync(FULL, carry[k], src);
+      }
+      bool odd = false;  // a live slot met a symbol without a match word
+      u64 eq[K];
+      int h[K];
+      bool live[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        // Lane 0's slot k continues lane 31's slot k - 1.
+        const int c = lane ? c_up[k] : k ? c_up[k > 0 ? k - 1 : 0] : c0;
+        h[k] = lane ? h_up[k] : k ? h_up[k > 0 ? k - 1 : 0] : h0;
+        c_mine[k] = c;
+        live[k] = (unsigned)(s - lane - 32 * k) < (unsigned)lb_mine[k];
+        const bool known = (unsigned)c < (unsigned)SIGMA;
+        eq[k] = peq_blk[k][(known ? c : 0) * nblk_pad];
+        odd |= live[k] && !known;
+      }
+      if (__any_sync(FULL, odd)) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (live[k] && (unsigned)c_mine[k] >= (unsigned)SIGMA)
+            eq[k] = match_word(ap, la, blk[k], c_mine[k]);
+      }
+      // No branch below: the K recurrences are independent and interleave.
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const u64 ph_in = (u64)(h[k] & 1), mh_in = (u64)(h[k] >> 1);
+        const u64 xv = eq[k] | vn[k];
+        const u64 eq2 = eq[k] | mh_in;
+        const u64 xh = (((eq2 & vp[k]) + vp[k]) ^ vp[k]) | eq2;
+        u64 ph = vn[k] | ~(xh | vp[k]);
+        u64 mh = vp[k] & xh;
+        const int carry_out = (int)(ph >> 63) | ((int)(mh >> 63) << 1);
+        ph = (ph << 1) | ph_in;
+        mh = (mh << 1) | mh_in;
+        vp[k] = live[k] ? mh | ~(xv | ph) : vp[k];
+        vn[k] = live[k] ? ph & xv : vn[k];
+        carry[k] = live[k] ? carry_out : carry[k];
+      }
+      if (keeps && live[K - 1]) hout[s - 31 - 32 * (K - 1)] = (uint8_t)carry[K - 1];
+    }
+    // VP/VN now hold column lb: D[i][lb] - D[i-1][lb] for each slot's rows.
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (blk[k] < nblk) {
+        const u64 rows = blk[k] < la_blk ? ~0ull : la_rows;
+        total += __popcll(vp[k] & rows) - __popcll(vn[k] & rows);
+      }
+    }
+    __syncwarp();
   }
-  if (threadIdx.x == 0) out[p] = pv[la];
+  for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(FULL, total, off);
+  if (lane == 0) out[p] = lb + total;  // D[0][lb] plus the deltas down to row la
+}
+
+template <int K>
+static int launch_bitvector(const void* a, int64_t a_stride, int64_t Wa,
+                            const void* b, int64_t b_stride, int64_t Wb,
+                            const void* la, const void* lb, void* out,
+                            int64_t B, cudaStream_t stream) {
+  const int nblk_pad = (int)((Wa + 63) / 64 > 0 ? (Wa + 63) / 64 : 1) | 1;
+  const int hstride = (int)((Wb + 32 * K + 15) / 16 * 16);
+  const size_t smem = (size_t)SIGMA * nblk_pad * sizeof(u64) + 2 * (size_t)hstride;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bitvector_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bitvector_kernel<K><<<(unsigned)B, 32, smem, stream>>>(
+      (const int32_t*)a, a_stride, (int)Wa, (const int32_t*)b, b_stride,
+      (int)Wb, (const int32_t*)la, (const int32_t*)lb, (int32_t*)out,
+      nblk_pad, hstride);
+  return kgt_launch_status();
 }
 
 // a: (B, Wa) int32 rows a_stride apart; b: (B or 1, Wb) int32 rows
@@ -81,18 +236,9 @@ KGT_API int kgt_wavefront(const void* a, int64_t a_stride, int64_t Wa,
                           const void* la, const void* lb, void* out,
                           int64_t B, void* stream) {
   if (B == 0) return 0;
-  const int width = (int)(Wa > 1 ? Wa + 1 : 2);
-  const size_t smem = 3 * (size_t)width * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int threads = ((width + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  wavefront_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)a, a_stride, (int)Wa, (const int32_t*)b, b_stride,
-      (int)Wb, (const int32_t*)la, (const int32_t*)lb, (int32_t*)out, width);
-  return kgt_launch_status();
+  cudaStream_t s = (cudaStream_t)stream;
+  // Up to 2,048 rows one block a lane covers the pattern in one stripe.
+  if (Wa <= 2048)
+    return launch_bitvector<1>(a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, s);
+  return launch_bitvector<2>(a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, s);
 }

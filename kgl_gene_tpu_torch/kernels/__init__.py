@@ -16,6 +16,12 @@ or loaded at import time: the CPU tests import every module.
 Each C entry point launches on the stream it is handed and returns the
 cudaError_t of the launch; launch() raises on any nonzero code. LAUNCHES
 counts launches per kernel name, one for each successful launch.
+
+The small kernels cost less on the device than their launch costs on the
+host, so launch() keeps the host side short: the C functions are looked up
+once, the raw handle of the current stream comes from one C call, and the
+CUDA device is switched only for a tensor that does not lie on the current
+one. scripts/torch_launch_cost.py times each of these pieces on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +34,10 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["LAUNCHES", "build", "check_args", "launch", "library", "reset_launches"]
+import torch
+
+__all__ = ["LAUNCHES", "build", "check_args", "current_stream_handle", "launch", "library",
+           "reset_launches"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -53,10 +62,16 @@ _SIGNATURES = {
     "kgt_banded": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
     # a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, B, M, band_k, stream
     "kgt_banded_choices": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
+    # coding, row_stride, k, out -> 1 (vector body) or 0 (scalar); no launch
+    "kgt_translate_body": (_P, _I, _I, _P),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
 _lib = None
+_entry_points: dict = {}  # C function by name, filled by library()
+# The current stream's cudaStream_t as an int, in one C call; a build of
+# torch without CUDA lacks it, and never launches.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 build_log = ""
 
 
@@ -121,6 +136,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            _entry_points[name] = fn
         lib.kgt_error_string.argtypes = [ctypes.c_int]
         lib.kgt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -131,22 +147,33 @@ def check_args(dtype, **tensors) -> None:
     """Raise unless every tensor lies on the card, has `dtype` and is
     contiguous: what the kernels take."""
     for name, x in tensors.items():
-        if x.device.type != "cuda":
+        if not x.is_cuda:
             raise ValueError(f"{name} must be on the card, got {x.device}")
-        if x.dtype != dtype:
+        if x.dtype is not dtype:
             raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch(kernel: str, name: str, *args) -> None:
-    """Call C entry point `name` on the current stream, raise if the
-    launch returned an error, and count one launch of `kernel`."""
-    import torch
+def current_stream_handle(index: int) -> int:
+    """cudaStream_t of device `index`'s current stream, as an int."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
-    lib = library()
-    rc = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+
+def launch(kernel: str, name: str, device: torch.device, *args) -> None:
+    """Call C entry point `name` on `device`'s current stream, raise if the
+    launch returned an error, and count one launch of `kernel`. `device`
+    is that of the tensors behind the pointers in `args`."""
+    fn = _entry_points.get(name) or getattr(library(), name)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, current_stream_handle(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, current_stream_handle(index))
     if rc != 0:
-        msg = lib.kgt_error_string(rc).decode()
+        msg = library().kgt_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
     LAUNCHES[kernel] += 1

@@ -150,13 +150,12 @@ def banded_distance(a, la, b, lb, *, band_k: int) -> torch.Tensor:
     if a.device.type == "cpu":
         return banded_plain(a, la, b, lb, band_k)
     B = _check_pairs(a, la, b, lb)
-    out = torch.empty(B, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        kernels.launch(
-            "banded", "kgt_banded",
-            a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
-            la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
-        )
+    out = la.new_empty(B)
+    kernels.launch(
+        "banded", "kgt_banded", a.device,
+        a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
+        la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
+    )
     return out
 
 
@@ -169,12 +168,11 @@ def banded_choices(a, la, b, lb, *, band_k: int) -> torch.Tensor:
         return banded_choices_plain(a, la, b, lb, band_k, rows)
     B = _check_pairs(a, la, b, lb)
     codes = torch.empty((rows, B, 2 * band_k + 1), dtype=torch.uint8, device=a.device)
-    with torch.cuda.device(a.device):
-        kernels.launch(
-            "banded_choices", "kgt_banded_choices",
-            a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
-            la.data_ptr(), lb.data_ptr(), codes.data_ptr(), B, rows, band_k,
-        )
+    kernels.launch(
+        "banded_choices", "kgt_banded_choices", a.device,
+        a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
+        la.data_ptr(), lb.data_ptr(), codes.data_ptr(), B, rows, band_k,
+    )
     return codes
 
 

@@ -2,8 +2,11 @@
 the local (infix) metric and the all-pairs matrix.
 
 Counterpart of kgl_gene_tpu/ops/edit_distance.py. batched_levenshtein is
-the plain PyTorch version of kernel B3 (csrc/wavefront.cu, wrapped by
-ops/wavefront.batched_levenshtein_kernel, which is what the paths call).
+the cell-level plain PyTorch version of kernel B3 (csrc/wavefront.cu,
+wrapped by ops/wavefront.batched_levenshtein_kernel, which is what the
+paths call): the route a CPU tensor takes and what the kernel is held
+against at full shapes. The kernel's own word-level algorithm in plain
+PyTorch is ops/wavefront.bitvector_plain.
 batched_levenshtein_local is plain PyTorch on any device, as the JAX
 package computes it outside any Pallas kernel.
 """

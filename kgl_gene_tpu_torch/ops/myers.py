@@ -29,7 +29,7 @@ import torch
 
 from .. import int32_on, kernels, resolve_device
 from .edit_distance import gathered_pairs
-from .wavefront import band_doubling
+from .wavefront import WORD, band_doubling, block_step, pack_words
 
 __all__ = [
     "MYERS_BANDS",
@@ -43,7 +43,6 @@ __all__ = [
 ]
 
 MYERS_BANDS = (31, 63, 127, 255, 511)
-WORD = 64
 
 
 def myers_layout(band_k: int):
@@ -64,14 +63,6 @@ def myers_band_for(bound: int, max_band: int = 511):
         if bound <= k:
             return k
     return None
-
-
-def _pack_words(bits: torch.Tensor) -> torch.Tensor:
-    """(..., 64) bool -> (...,) int64 word with bit r = bits[..., r]. The
-    terms are distinct powers of two, so the sum never carries and equals
-    the bitwise OR (bit 63 is int64's sign bit)."""
-    shifts = torch.arange(WORD, dtype=torch.int64, device=bits.device)
-    return (bits.to(torch.int64) << shifts).sum(-1)
 
 
 def myers_plain(a, la, text, lb, band_k: int) -> torch.Tensor:
@@ -97,7 +88,7 @@ def myers_plain(a, la, text, lb, band_k: int) -> torch.Tensor:
     codes = torch.where(idx[None, :] < la[:, None], codes, -1)
     codes = codes.view(B, n_blk, WORD)
     peq = torch.stack(
-        [_pack_words(codes == s) for s in range(5)]
+        [pack_words(codes == s) for s in range(5)]
         + [torch.zeros(B, n_blk, dtype=torch.int64, device=dev)],
         dim=2,
     )
@@ -125,22 +116,10 @@ def myers_plain(a, la, text, lb, band_k: int) -> torch.Tensor:
         for t in range(NB):
             win = peq[:, wb + t, :]
             eq = win[:, c[0]] if c.shape[0] == 1 else win.gather(1, c[:, None])[:, 0]
-            pv, mv = vp[t], vn[t]
-            xv = eq | mv
-            eq2 = eq | mh_in
-            xh = (((eq2 & pv) + pv) ^ pv) | eq2
-            ph = mv | ~(xh | pv)
-            mh = pv & xh
+            ph, mh, vp[t], vn[t], ph_in, mh_in = block_step(eq, vp[t], vn[t], ph_in, mh_in)
             in_slot = slot == t
             ph_sel = torch.where(in_slot, ph, ph_sel)
             mh_sel = torch.where(in_slot, mh, mh_sel)
-            ph_out = (ph >> 63) & 1
-            mh_out = (mh >> 63) & 1
-            ph = (ph << 1) | ph_in
-            mh = (mh << 1) | mh_in
-            vp[t] = mh | ~(xv | ph)
-            vn[t] = ph & xv
-            ph_in, mh_in = ph_out, mh_out
         bit_delta = ((ph_sel >> la_pos) & 1) - ((mh_sel >> la_pos) & 1)
         delta = torch.where(
             slot < 0, 1, torch.where(slot < NB, bit_delta, ph_in - mh_in)
@@ -168,14 +147,13 @@ def myers_distance_padded(a, la, b, lb, *, band_k: int):
         raise ValueError(f"bad shapes a {tuple(a.shape)}, b {tuple(b.shape)}")
     if la.shape != (B,) or lb.shape != (B,):
         raise ValueError(f"la, lb must be ({B},), got {tuple(la.shape)}, {tuple(lb.shape)}")
-    out = torch.empty(B, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        kernels.launch(
-            "myers", "kgt_myers",
-            a.data_ptr(), a.stride(0), a.shape[1],
-            b.data_ptr(), 0 if b.shape[0] == 1 else b.stride(0), b.shape[1],
-            la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
-        )
+    out = la.new_empty(B)
+    kernels.launch(
+        "myers", "kgt_myers", a.device,
+        a.data_ptr(), a.stride(0), a.shape[1],
+        b.data_ptr(), 0 if b.shape[0] == 1 else b.stride(0), b.shape[1],
+        la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
+    )
     return out
 
 

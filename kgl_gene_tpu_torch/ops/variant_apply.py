@@ -7,6 +7,13 @@ _codon_index, translate_batch, translate_batch_pallas). Kernel B2, the
 fused codon indexing and LUT lookup, is csrc/translate.cu, launched by
 translate_batch_kernel; translate_batch is its plain PyTorch version,
 which a CPU tensor takes.
+
+B2 is bound by bytes (4/3 bytes per base, microseconds at any batch the
+step sees), so at the step's shapes a call costs what its launch costs on
+the host. The kernel streams 16 codons a thread with 16-byte loads and
+stores when the rows form one aligned flat stream (S = 3k, contiguous) and
+falls to a byte-wise body otherwise; the wrapper does no more than the
+checks the kernel needs, one new_empty and one ctypes call.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ __all__ = [
     "reverse_complement_batch",
     "translate_batch",
     "translate_batch_kernel",
+    "translate_kernel_body",
 ]
 
 
@@ -116,11 +124,20 @@ def translate_batch_kernel(coding: torch.Tensor, amino_lut: torch.Tensor) -> tor
         )
     B, S = coding.shape
     k = S // 3
-    out = torch.empty(B, k, dtype=torch.uint8, device=coding.device)
-    with torch.cuda.device(coding.device):
-        kernels.launch(
-            "translate", "kgt_translate",
-            coding.data_ptr(), coding.stride(0), B, k,
-            amino_lut.data_ptr(), out.data_ptr(),
-        )
+    out = coding.new_empty((B, k))
+    kernels.launch(
+        "translate", "kgt_translate", coding.device,
+        coding.data_ptr(), coding.stride(0), B, k,
+        amino_lut.data_ptr(), out.data_ptr(),
+    )
     return out
+
+
+def translate_kernel_body(coding: torch.Tensor) -> str:
+    """Which body of kernel B2 a launch on `coding` (a CUDA tensor) takes:
+    'vector' or 'scalar'. Asks the launcher's own test; launches nothing.
+    An output of torch.empty is always 16-byte aligned, so 0 stands for it."""
+    kernels.check_args(torch.uint8, coding=coding)
+    body = kernels.library().kgt_translate_body(
+        coding.data_ptr(), coding.stride(0), coding.shape[1] // 3, 0)
+    return "vector" if body else "scalar"

@@ -1,11 +1,30 @@
 """Exact batched Levenshtein on the card: the wrapper of kernel B3.
 
 Counterpart of kgl_gene_tpu/ops/pallas_edit_distance.py (_pallas_call and
-pallas_batched_levenshtein). The CUDA kernel is csrc/wavefront.cu: one
-thread block per pair, its threads across the cells of an anti-diagonal,
-three diagonal buffers in shared memory. Its plain PyTorch version is
-ops/edit_distance.batched_levenshtein, which a CPU tensor takes; a CUDA
-tensor launches the kernel or raises.
+pallas_batched_levenshtein). The CUDA kernel is csrc/wavefront.cu: the
+Myers/Hyyro bit-vector recurrence over all ceil(la / 64) blocks of the
+pattern, no band, so it is exact for every pair. One warp holds one pair:
+lane t holds one or two 64-row blocks with their vertical deltas in
+registers, works on text column s - t (- 32 for its second block) at step
+s, and takes the two carry bits from the lane above by a warp shuffle;
+patterns above 4,096 rows go in stripes whose carries pass through shared
+memory. Codes are compared as int32 values whatever the alphabet: match
+words for symbols 0..31 are built once per pair in shared memory, any
+other symbol's on the spot.
+
+What bounds it on the card: word operations (34 int32 operations per
+64-row block and column), far below the anti-diagonal wavefront it
+replaced (one cell per operation and a block barrier per diagonal). At a
+few hundred pairs it is latency-bound all the same: a pair is a dependent
+chain of (lb + 63) * ceil(la / 4096) steps on one warp. With thousands of
+pairs it is bound by the rate the SMs dispatch operations at.
+
+Two plain PyTorch versions stand beside it. ops/edit_distance.
+batched_levenshtein (the cell-level wavefront) is what a CPU tensor takes
+and what the kernel is held against at full shapes; bitvector_plain below
+is the kernel's own word-level algorithm in int64 words, for the CPU tests
+and a small-shape check on the card. A CUDA tensor launches the kernel or
+raises.
 
 Dropped from the TPU version: the lane-reversed b, the 128-lane width, the
 BLOCK_B batch quantum and the shape bucketing.
@@ -20,11 +39,99 @@ from .. import int32_on, kernels, resolve_device
 from .edit_distance import batched_levenshtein
 
 __all__ = ["MAX_KERNEL_LEN", "band_doubling", "batched_levenshtein_kernel",
+           "bitvector_plain", "block_step", "kernel_smem_bytes", "pack_words",
            "wavefront_levenshtein"]
 
-# Three int32 diagonals of Ma + 1 cells must fit one block's shared memory
-# (227 KB on Hopper).
-MAX_KERNEL_LEN = (227 * 1024) // 12 - 1
+WORD = 64
+SIGMA = 32               # symbols with a match word in shared memory
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may take on Hopper
+
+
+def kernel_smem_bytes(Ma: int, Mb: int) -> int:
+    """Shared memory of one pair in csrc/wavefront.cu: SIGMA match words
+    for each 64-row pattern block (the block count padded to odd) and two
+    buffers of one carry byte per text column."""
+    nblk = max(-(-Ma // WORD), 1) | 1
+    slots = 1 if Ma <= 2048 else 2  # blocks a lane holds at once
+    hstride = -(-(Mb + 32 * slots) // 16) * 16
+    return SIGMA * nblk * 8 + 2 * hstride
+
+
+# The widest Ma = Mb the kernel takes: 605 blocks (154,880 bytes of match
+# words) and 2 x 38,784 carry bytes, all 232,448 bytes a block may take. (The
+# wavefront it replaced held three int32 diagonals and stopped at 19,369.)
+# The wrapper checks the two widths it is given, so a narrow pattern may
+# meet a longer text.
+MAX_KERNEL_LEN = 38720
+
+
+def pack_words(bits: torch.Tensor) -> torch.Tensor:
+    """(..., 64) bool -> (...,) int64 word with bit r = bits[..., r]. The
+    terms are distinct powers of two, so the sum never carries and equals
+    the bitwise OR (bit 63 is int64's sign bit)."""
+    shifts = torch.arange(WORD, dtype=torch.int64, device=bits.device)
+    return (bits.to(torch.int64) << shifts).sum(-1)
+
+
+def block_step(eq, pv, mv, ph_in, mh_in):
+    """One text column through one 64-row block (edlib's calculateBlock) on
+    int64 words, where `+` wraps like the kernels' unsigned add. eq: match
+    word; pv, mv: the block's vertical +1/-1 deltas; ph_in, mh_in: 0/1
+    horizontal deltas of the row above. Returns (ph, mh, pv, mv, ph_out,
+    mh_out): the horizontal deltas before the shift (bit r: row r of the
+    block), the new vertical deltas and the 0/1 carries of the last row."""
+    xv = eq | mv
+    eq2 = eq | mh_in
+    xh = (((eq2 & pv) + pv) ^ pv) | eq2
+    ph = mv | ~(xh | pv)
+    mh = pv & xh
+    ph_out = (ph >> 63) & 1
+    mh_out = (mh >> 63) & 1
+    ph_s = (ph << 1) | ph_in
+    mh_s = (mh << 1) | mh_in
+    return ph, mh, mh_s | ~(xv | ph_s), ph_s & xv, ph_out, mh_out
+
+
+def bitvector_plain(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3's algorithm: full-width
+    Myers/Hyyro over int64 words, every block of the pattern, equality over
+    any integer codes. seq_a (B, Ma), seq_b (B or 1, Mb), len_a, len_b (B,)
+    (clamped to the widths). Returns (B,) int32 exact distances."""
+    B, Ma = seq_a.shape
+    dev = seq_a.device
+    la = len_a.to(torch.int64).clamp(0, Ma)
+    lb = len_b.to(torch.int64).clamp(0, seq_b.shape[1])
+    L = int(lb.max()) if B else 0
+    n_blk = max(-(-(int(la.max()) if B else 0) // WORD), 1)
+    rows = n_blk * WORD
+    codes = torch.zeros((B, rows), dtype=torch.int64, device=dev)
+    w = min(Ma, rows)
+    codes[:, :w] = seq_a[:, :w].to(torch.int64)
+    codes = codes.view(B, n_blk, WORD)
+    in_a = (torch.arange(rows, device=dev)[None, :] < la[:, None]).view(B, n_blk, WORD)
+    text = seq_b.to(torch.int64).expand(B, -1)
+
+    vp = [torch.full((B,), -1, dtype=torch.int64, device=dev) for _ in range(n_blk)]
+    vn = [torch.zeros(B, dtype=torch.int64, device=dev) for _ in range(n_blk)]
+    la_blk = ((la - 1) >> 6).clamp(min=0)
+    la_pos = (la - 1) & 63
+    score = la.clone()
+    result = la.clone()  # lb = 0 pairs
+    for j in range(1, L + 1):
+        # Rows >= la match nothing.
+        eq = pack_words((codes == text[:, j - 1, None, None]) & in_a)  # (B, n_blk)
+        ph_in = torch.ones(B, dtype=torch.int64, device=dev)  # D[0][j] - D[0][j-1]
+        mh_in = torch.zeros(B, dtype=torch.int64, device=dev)
+        ph_sel, mh_sel = mh_in, mh_in
+        for t in range(n_blk):
+            ph, mh, vp[t], vn[t], ph_in, mh_in = block_step(eq[:, t], vp[t], vn[t], ph_in, mh_in)
+            owns = la_blk == t
+            ph_sel = torch.where(owns, ph, ph_sel)
+            mh_sel = torch.where(owns, mh, mh_sel)
+        score = score + ((ph_sel >> la_pos) & 1) - ((mh_sel >> la_pos) & 1)
+        result = torch.where(lb == j, score, result)
+    result = torch.where(la == 0, lb, result)
+    return result.to(torch.int32)
 
 
 def batched_levenshtein_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
@@ -40,17 +147,17 @@ def batched_levenshtein_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
         raise ValueError(f"seq_b must be ({B}, Mb) or (1, Mb), got {tuple(seq_b.shape)}")
     if len_a.shape != (B,) or len_b.shape != (B,):
         raise ValueError(f"lengths must be ({B},)")
-    if Ma > MAX_KERNEL_LEN:
-        raise ValueError(f"seq_a width {Ma} exceeds the kernel's {MAX_KERNEL_LEN}")
-    out = torch.empty(B, dtype=torch.int32, device=seq_a.device)
-    with torch.cuda.device(seq_a.device):
-        kernels.launch(
-            "wavefront", "kgt_wavefront",
-            seq_a.data_ptr(), seq_a.stride(0), Ma,
-            seq_b.data_ptr(), 0 if seq_b.shape[0] == 1 else seq_b.stride(0),
-            seq_b.shape[1],
-            len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(), B,
-        )
+    Mb = seq_b.shape[1]
+    if kernel_smem_bytes(Ma, Mb) > SMEM_LIMIT:
+        raise ValueError(f"widths ({Ma}, {Mb}) exceed the kernel's shared memory "
+                         f"(both up to {MAX_KERNEL_LEN})")
+    out = len_a.new_empty(B)
+    kernels.launch(
+        "wavefront", "kgt_wavefront", seq_a.device,
+        seq_a.data_ptr(), seq_a.stride(0), Ma,
+        seq_b.data_ptr(), 0 if seq_b.shape[0] == 1 else seq_b.stride(0), Mb,
+        len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(), B,
+    )
     return out
 
 

@@ -88,6 +88,26 @@ def test_translate_matches_jax_all_tables(table_name):
         np.testing.assert_array_equal(got.numpy(), j_pallas)
 
 
+@pytest.mark.parametrize("B,S", [(4, 3 * 16), (3, 3 * 21 + 1), (3, 3 * 21 + 2), (1, 3 * 33),
+                                 (1, 50), (5, 2), (5, 1), (2, 0), (0, 9)])
+def test_translate_ragged_widths_match_jax(B, S):
+    """S % 3 in {1, 2} drops the 1-2 trailing bases of each row; S < 3
+    gives k = 0 columns; B = 1 and an empty batch keep their shapes."""
+    rng = np.random.default_rng(100 * B + S)
+    coding = rng.integers(0, 5, size=(B, S)).astype(np.uint8)
+    lut = amino_translation_table("NCBI_TABLE_1").amino_lut
+    want = np.asarray(jva.translate_batch(jnp.asarray(coding), jnp.asarray(lut)))
+    assert want.shape == (B, S // 3)
+    for fn in (tva.translate_batch, tva.translate_batch_kernel):
+        got = fn(torch.as_tensor(coding), torch.as_tensor(lut))
+        assert got.dtype == torch.uint8 and tuple(got.shape) == (B, S // 3)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if B and S >= 3:
+        j_pallas = np.asarray(jva.translate_batch_pallas(
+            jnp.asarray(coding), jnp.asarray(lut), interpret=True))
+        np.testing.assert_array_equal(j_pallas, want)
+
+
 def test_translate_wrapper_refuses_non_cpu_tensors_it_cannot_launch():
     coding = torch.zeros(2, 9, dtype=torch.uint8, device="meta")
     lut = torch.zeros(65, dtype=torch.uint8, device="meta")
