@@ -18,13 +18,25 @@ after:
      held against the same analysis on the CPU; then the B5 band doubling
      over the same pairs and batched_cigar on wide edits.
 
+B1 (banded Myers) and B4 (traceback codes) each have two bodies that
+their launchers choose between from the shapes alone; each body is held
+against the plain version at every band, the script prints which body each
+shape takes, and it fails unless the forward step's shapes take B1's group
+body, a launch of 9,000 pairs at band 511 its thread body, and the
+family's band B4's warp body. The walk over B4's codes (csrc/walk.cu) is held against its plain
+PyTorch loop at the family's shape and on the wide-edit pairs.
+
 Then it times the step, the family path and each kernel; the family
-path's kernels (B5, B1's pool, B4) and B3 are first held against their
-plain versions at the shapes they are timed at. B2 and B3 are timed two
-ways: host-inclusive (back-to-back calls between two events, which reads
-the host's rate of issuing them when the kernel is short) and on the
+path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
+their plain versions at the shapes they are timed at. Kernels are timed
+two ways: host-inclusive (back-to-back calls between two events, which
+reads the host's rate of issuing them when the kernel is short) and on the
 device alone (the calls captured into one CUDA graph, events around a
-replay). It imports nothing of JAX or of the JAX package.
+replay); B1 and B4 with the body they replaced beside the new one. Each
+row of the kernels line carries bound_ms (integer operations set against
+the card's float32 rate, as every earlier run computed it) and
+issue_bound_ms (the same operations against the rate the card issues
+integer operations at). It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then one JSON line {"kernels": [...]}, the card's
 name and power limit from nvidia-smi, and as the last line
@@ -54,6 +66,7 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # float32 rate (67 T/s) stands in, which makes every bound of an integer
 # kernel a floor (Hopper issues int32 at half that rate).
 OPS_PER_S = 67e12
+INT_LANES_PER_SM = 64  # an H100 SM issues 64 int32 operations a cycle, no fused pair
 MYERS_OPS_PER_BLOCK_COLUMN = 34  # 17 word ops of 64 bits, two int32 ops each
 WAVEFRONT_OPS_PER_CELL = 6       # compare, 2 adds, 2 mins, store select
 # Banded row DP per cell: compare, two adds and a min for base, an add and
@@ -74,6 +87,21 @@ def nvidia_smi_line():
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def int_issue_rate():
+    """Integer operations a second the card can issue: 64 lanes an SM, the
+    SM count from the device properties, the SM clock's maximum from
+    nvidia-smi. The float32 rate behind bound_ms counts 128 lanes and a
+    fused multiply-add as two, so it is 4x this."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return INT_LANES_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
 def time_cuda_turns(fns, iters, windows=5, warm=True):
@@ -180,7 +208,9 @@ def phase_kernels(dev, errs):
     import torch
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein, levenshtein_numpy
-    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
+    from kgl_gene_tpu_torch.ops.myers import (
+        MYERS_BANDS, myers_distance_padded, myers_kernel_body, myers_plain,
+    )
     from kgl_gene_tpu_torch.ops.variant_apply import (
         translate_batch, translate_batch_kernel, translate_kernel_body,
     )
@@ -230,9 +260,14 @@ def phase_kernels(dev, errs):
         if bodies[name] != "scalar":
             raise AssertionError(f"B2 took the {bodies[name]} body at {name}")
 
-    # B1: shared text, bands 31/63/127 at S = 3000, B = 256, ragged la/lb,
-    # lb = 0, la = 0, pairs far outside the band.
-    B = 256
+    # B1, every band, one shared text and per-pair texts, in each body a
+    # launch can take: the launcher's rule gives these pair counts the
+    # group body; the thread body, which the rule keeps for launches that
+    # fill the card, is named here and reached by the rule further down.
+    # Ragged la and lb, la = 0, lb = 0, |la - lb| beyond every band,
+    # unrelated pairs, la on block edges, B = 1 and B = 257 (not a multiple
+    # of the 10, 6 or 3 pairs a warp holds).
+    B = 257
     ref = rng.integers(0, 5, size=S).astype(np.int32)
     a = np.tile(ref, (B, 1))
     for i in range(B):
@@ -244,18 +279,55 @@ def phase_kernels(dev, errs):
     lb = np.full(B, S, np.int32) - rng.integers(0, 200, B).astype(np.int32)
     la[8], lb[9], la[10], lb[10] = 0, 0, 0, 0
     lb[11] = S - 500  # |la - lb| beyond every band
+    la[12:16] = (63, 64, 65, 128)
+    lb[12:16] = (60, 70, 65, 140)
     a_t, la_t, lb_t = (torch.as_tensor(x, device=dev) for x in (a, la, lb))
     ref_t = torch.as_tensor(ref[None, :], device=dev)
-    for k in (31, 63, 127):
-        errs["myers"] = max(errs["myers"], exact(
-            f"B1 myers shared text k={k} (B={B}, S={S})",
-            myers_distance_padded(a_t, la_t, ref_t, lb_t, band_k=k),
-            myers_plain(a_t, la_t, ref_t, lb_t, k)))
     per_pair = torch.as_tensor(np.roll(a, 1, axis=0), device=dev)
+    taken = {}
+    single = {(63, "shared"), (127, "per-pair"), (511, "shared")}  # also run at B = 1
+    for k in MYERS_BANDS:
+        for text, mode in ((ref_t, "shared"), (per_pair, "per-pair")):
+            for n in (B, 1) if (k, mode) in single else (B,):
+                args = (a_t[:n], la_t[:n], text[:n] if mode == "per-pair" else text, lb_t[:n])
+                want = myers_plain(*args, k)
+                taken[f"B={n} k={k}"] = myers_kernel_body(n, S, S, k)
+                for body in (None, "thread"):
+                    errs["myers"] = max(errs["myers"], exact(
+                        f"B1 myers {mode} text k={k} (B={n}, S={S}), "
+                        f"{body or 'the rule: ' + taken[f'B={n} k={k}']} body",
+                        myers_distance_padded(*args, band_k=k, _body=body), want))
+    # Peq words above 48 KB of dynamic shared memory: 12,300 rows, 10 pairs
+    # a warp at band 63 (92 KB).
+    long_ref = rng.integers(0, 4, size=12300).astype(np.int32)
+    long_a = np.stack([indel_mutant(rng, long_ref, 40, 4)[:12280] for _ in range(8)])
+    args = [torch.as_tensor(x, device=dev) for x in (
+        long_a, np.full(8, 12280, np.int32), long_ref[None, :], np.full(8, 12300, np.int32))]
     errs["myers"] = max(errs["myers"], exact(
-        f"B1 myers per-pair text k=63 (B={B}, S={S})",
-        myers_distance_padded(a_t, la_t, per_pair, lb_t, band_k=63),
-        myers_plain(a_t, la_t, per_pair, lb_t, 63)))
+        "B1 myers shared text k=63 (B=8, Wa=12280, Wt=12300), group body above 48 KB",
+        myers_distance_padded(*args, band_k=63), myers_plain(*args, 63)))
+    taken["B=8 k=63 Wa=12280"] = myers_kernel_body(8, 12280, 12300, 63)
+    for n, k in ((256, 63), (4096, 63)):
+        taken[f"B={n} k={k}"] = myers_kernel_body(n, S, S, k)
+        if taken[f"B={n} k={k}"] != "group":
+            raise AssertionError(f"B1 takes the thread body at the step's shape B={n}, k={k}")
+    # A launch the rule gives the thread body (band 511 above 8,192 pairs),
+    # against the group body named, which is held against the plain version
+    # at this band above.
+    n = 9000
+    reps = -(-n // B)
+    big = [x.repeat(reps, 1)[:n].contiguous() for x in (a_t, per_pair)] + [
+        x.repeat(reps)[:n].contiguous() for x in (la_t, lb_t)]
+    taken[f"B={n} k=511"] = myers_kernel_body(n, S, S, 511)
+    errs["myers"] = max(errs["myers"], exact(
+        f"B1 myers per-pair text k=511 (B={n}, S={S}), the rule: {taken[f'B={n} k=511']} body, "
+        "vs the group body",
+        myers_distance_padded(big[0], big[2], big[1], big[3], band_k=511),
+        myers_distance_padded(big[0], big[2], big[1], big[3], band_k=511, _body="group")))
+    del big
+    log(f"  B1 bodies: {taken}")
+    if taken[f"B={n} k=511"] != "thread":
+        raise AssertionError("B1's rule does not reach the thread body")
 
     # B3: the entry() shape (S = 120, shared reference) and S = 3000,
     # B = 64, ragged per-pair lengths.
@@ -419,7 +491,7 @@ def phase_times(dev, steps, inputs, configs, errs):
     import torch
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein
-    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
+    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_kernel_body, myers_plain
     from kgl_gene_tpu_torch.ops.variant_apply import (
         _codon_index, translate_batch, translate_batch_kernel, translate_kernel_body,
     )
@@ -502,17 +574,40 @@ def phase_times(dev, steps, inputs, configs, errs):
                 replaces="kgl_gene_tpu/ops/variant_apply.py:95", shape=f"({n}, {S}) uint8",
                 bound_by="bytes", **t))
 
+    # B1 with the shared reference at the step's two batch sizes, the
+    # group body (the rule's) beside the thread body it replaced there,
+    # host-inclusive and on the device alone.
     NB = 3  # band 63
-    m_ms = time_cuda(lambda: myers_distance_padded(a32, lens, ref_t, lens, band_k=63), 20)
-    mp_ms = time_cuda(lambda: myers_plain(a32, lens, ref_t, lens, 63), 1, windows=1)
-    ops = B * S * NB * MYERS_OPS_PER_BLOCK_COLUMN
-    nbytes = B * S * 4 + S * 4 + 3 * B * 4
-    rows.append(dict(
-        name="myers", route="cuda", source="kgl_gene_tpu_torch/csrc/myers.cu",
-        replaces="kgl_gene_tpu/ops/pallas_myers.py:74", shape=f"B={B} S={S} k=63 shared text",
-        ms=m_ms, plain_ms=mp_ms, library_ms=None,
-        bound_ms=max(ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if ops / OPS_PER_S >= nbytes / MEM_BYTES_PER_S else "bytes"))
+    b32 = coding_b.to(torch.int32)
+    for m32 in (a32, b32):
+        n = m32.shape[0]
+        ln = torch.full((n,), S, dtype=torch.int32, device=dev)
+        if myers_kernel_body(n, S, S, 63) != "group":
+            raise AssertionError(f"B1 takes the thread body at the step's B={n}")
+        call = functools.partial(myers_distance_padded, m32, ln, ref_t, ln, band_k=63)
+        old_call = functools.partial(call, _body="thread")
+        want = myers_plain(m32, ln, ref_t, ln, 63) if n == B else old_call()
+        errs["myers"] = max(errs["myers"], exact(
+            f"B1 myers on the step's coding (B={n}, S={S}, k=63) vs "
+            f"{'its plain version' if n == B else 'the thread body'}", call(), want))
+        m_ms, old_ms = time_cuda_turns([call, old_call], 20)
+        md_ms, old_d_ms = time_device([call], 5), time_device([old_call], 5)
+        ops = n * S * NB * MYERS_OPS_PER_BLOCK_COLUMN
+        b_ms, by = bound(ops, n * S * 4 + S * 4 + 3 * n * 4)
+        log(f"  B1 myers shared text B={n} S={S} k=63: group body {m_ms:.6f} ms host-inclusive, "
+            f"{md_ms:.6f} ms device; thread body (the earlier design) {old_ms:.6f} ms, "
+            f"{old_d_ms:.6f} ms device; bound {b_ms:.6f} ms ({by})")
+        if n == B:
+            mp_ms = time_cuda(lambda: myers_plain(a32, lens, ref_t, lens, 63), 1, windows=1)
+            rows.append(dict(
+                name="myers", route="cuda", source="kgl_gene_tpu_torch/csrc/myers.cu",
+                replaces="kgl_gene_tpu/ops/pallas_myers.py:74",
+                shape=f"B={B} S={S} k=63 shared text", ms=m_ms, device_ms=md_ms,
+                thread_body_ms=old_ms, thread_body_device_ms=old_d_ms, plain_ms=mp_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=by, int_ops=ops))
+        else:
+            rows[-1].update(ms_b4096=m_ms, device_ms_b4096=md_ms, thread_body_ms_b4096=old_ms,
+                            thread_body_device_ms_b4096=old_d_ms, bound_ms_b4096=b_ms)
 
     Bd = d32.shape[0]
     w_ms, wp_ms = checked_times(
@@ -522,15 +617,16 @@ def phase_times(dev, steps, inputs, configs, errs):
     wd_ms = time_device([lambda: batched_levenshtein_kernel(d32, lens_d, ref_t, lens_d)], 5)
     # The kernel's work is block steps (64 rows of one column each); the
     # cell count is what the anti-diagonal kernel before it was set against.
-    b_ms, by = bound(Bd * -(-S // 64) * S * MYERS_OPS_PER_BLOCK_COLUMN,
-                     Bd * S * 4 + S * 4 + 3 * Bd * 4)
+    w_ops = Bd * -(-S // 64) * S * MYERS_OPS_PER_BLOCK_COLUMN
+    b_ms, by = bound(w_ops, Bd * S * 4 + S * 4 + 3 * Bd * 4)
     cell_ms = Bd * S * S * WAVEFRONT_OPS_PER_CELL / OPS_PER_S * 1e3
     log(f"  B3 wavefront: device {wd_ms:.6f} ms; bound by block steps {b_ms:.6f} ms, "
         f"by cells (the earlier kernel's) {cell_ms:.6f} ms")
     rows.append(dict(
         name="wavefront", route="cuda", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
         replaces="kgl_gene_tpu/ops/pallas_edit_distance.py:36", shape=f"B={Bd} S={S} shared reference",
-        ms=w_ms, device_ms=wd_ms, plain_ms=wp_ms, library_ms=None, bound_ms=b_ms, bound_by=by))
+        ms=w_ms, device_ms=wd_ms, plain_ms=wp_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+        int_ops=w_ops))
     for r in rows:
         log(f"  kernel {r['name']} at {r['shape']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library {r['library_ms']}")
@@ -586,7 +682,8 @@ def phase_banded_kernels(dev, errs):
     import torch
 
     from kgl_gene_tpu_torch.ops.banded import (
-        banded_choices, banded_choices_plain, banded_distance, banded_plain,
+        banded_choices, banded_choices_kernel_body, banded_choices_plain, banded_distance,
+        banded_plain,
     )
     from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
 
@@ -597,12 +694,26 @@ def phase_banded_kernels(dev, errs):
         errs["banded"] = max(errs["banded"], exact(
             f"B5 banded k={k} (B={B}, S={S}, ragged, indels, la=0, lb=0, gaps > k)",
             banded_distance(a, la, b, lb, band_k=k), banded_plain(a, la, b, lb, k)))
+    # B4 over the whole tensor in each body a launch can take: the warp
+    # body up to band 255 (the block body named beside it), the block body
+    # at 511. Ragged lengths, indels, la = 0, lb = 0, unrelated pairs and
+    # length gaps beyond the band; B = 64 and B = 1.
     a64, la64, b64, lb64 = (x[:64].contiguous() for x in (a, la, b, lb))
+    taken = {}
     for k in (31, 127, 511):
-        errs["banded_choices"] = max(errs["banded_choices"], exact(
-            f"B4 banded_choices codes k={k} (B=64, S={S}, ragged, indels)",
-            banded_choices(a64, la64, b64, lb64, band_k=k),
-            banded_choices_plain(a64, la64, b64, lb64, k, max(a64.shape[1], 1))))
+        taken[f"k={k}"] = banded_choices_kernel_body(k)
+        for n in (64, 1):
+            args = (a64[:n], la64[:n], b64[:n], lb64[:n])
+            want = banded_choices_plain(*args, k, max(a64.shape[1], 1))
+            for body in (None, "block") if taken[f"k={k}"] == "warp" else (None,):
+                errs["banded_choices"] = max(errs["banded_choices"], exact(
+                    f"B4 banded_choices codes k={k} (B={n}, S={S}, ragged, indels), "
+                    f"{body or 'the rule: ' + taken[f'k={k}']} body",
+                    banded_choices(*args, band_k=k, _body=body), want))
+    log(f"  B4 bodies: {taken}")
+    if taken != {"k=31": "warp", "k=127": "warp", "k=511": "block"}:
+        raise AssertionError("B4 does not take the warp body at the family's band, "
+                             "or the block body at band 511")
     for k in (255, 511):
         errs["myers_pool"] = max(errs["myers_pool"], exact(
             f"B1 myers per-pair text k={k} (B={B}, S={S})",
@@ -708,7 +819,7 @@ def phase_family(dev, records, ref, workdir):
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     log(f"  family path launches: {counts}; host-DP reroutes {host_dp.calls}")
-    expected = ("myers", "wavefront", "banded_choices")
+    expected = ("myers", "wavefront", "banded_choices", "walk")
     if any(counts.get(name, 0) < 1 for name in expected) or any(
             n for name, n in counts.items() if name not in expected):
         raise AssertionError(f"expected launches of {expected} only on the family path, got {counts}")
@@ -734,7 +845,7 @@ def phase_family(dev, records, ref, workdir):
     dist_cpu = cpu.reference_distances()
     same("reference_distances (global, B3)", dist, dist_cpu)
     cig_cpu = cpu.reference_cigars()
-    same("reference_cigars (B4 + tb_walk)", cigars, cig_cpu)
+    same("reference_cigars (B4 + the walk kernel)", cigars, cig_cpu)
     cpu.write_report(f"{workdir}/family_cpu.csv", distances=dist_cpu, cigars=True)
     with open(f"{workdir}/family_card.csv", "rb") as f1, open(f"{workdir}/family_cpu.csv", "rb") as f2:
         same("write_report(cigars=True) bytes", f1.read(), f2.read())
@@ -793,10 +904,12 @@ def phase_band_doubling(dev, seqs, lens, matrix):
     return counts
 
 
-def phase_wide_cigars(dev):
+def phase_wide_cigars(dev, errs):
     """batched_cigar at band 31 on pairs with 3-150 substitutions plus
     indels and one unrelated pair, on the card and on the CPU."""
-    from kgl_gene_tpu_torch.ops.traceback import batched_cigar
+    from kgl_gene_tpu_torch import int32_on, kernels
+    from kgl_gene_tpu_torch.ops.banded import banded_choices
+    from kgl_gene_tpu_torch.ops.traceback import batched_cigar, tb_walk, tb_walk_plain
 
     rng = np.random.default_rng(SEED + 3)
     ref = rng.integers(0, 4, size=S).astype(np.int32)
@@ -805,10 +918,27 @@ def phase_wide_cigars(dev):
     b, lb = pack_pairs(muts)
     a = np.tile(ref, (len(muts), 1))
     la = np.full(len(muts), S, np.int32)
+    # The walk kernel against its plain version on these pairs' codes, at
+    # the first band and the widest, paths that leave the band included.
+    for k in (31, 511):
+        t = int32_on(dev, a, la, b, lb)
+        codes = banded_choices(*t, band_k=k)
+        steps = 2 * k + 1 + (S + 252) // 253 + 8
+        got = tb_walk(codes, t[1], t[3], band_k=k, max_steps=steps)
+        want = tb_walk_plain(codes, t[1], t[3], band_k=k, max_steps=steps)
+        errs["walk"] = max(errs["walk"],
+                           exact(f"walk ops, wide edits k={k} ({len(muts)} pairs, {steps} steps)",
+                                 got[0], want[0]),
+                           exact(f"walk counts, wide edits k={k}", got[1], want[1]))
+        del codes
+    kernels.reset_launches()
     runs = {}
     for where in (dev, "cpu"):
         with HostDPCounter() as host_dp:
             runs[str(where)] = (batched_cigar(a, la, b, lb, band_k=31, device=where), host_dp.calls)
+    log(f"  batched_cigar launches: {dict(kernels.LAUNCHES)}")
+    if kernels.LAUNCHES["walk"] != kernels.LAUNCHES["banded_choices"] or not kernels.LAUNCHES["walk"]:
+        raise AssertionError("batched_cigar: every B4 launch is followed by one walk launch")
     got, want = runs[str(dev)], runs["cpu"]
     log(f"  batched_cigar band 31, {len(muts)} pairs: host-DP reroutes card {got[1]}, CPU {want[1]}")
     same("batched_cigar (3-150 substitutions + indels) and its reroute count", got, want)
@@ -858,8 +988,10 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
         banded_choices, banded_choices_plain, banded_distance, banded_plain,
     )
     from kgl_gene_tpu_torch.ops.edit_distance import pairwise_distance_matrix
-    from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_layout, myers_plain
-    from kgl_gene_tpu_torch.ops.traceback import tb_walk
+    from kgl_gene_tpu_torch.ops.myers import (
+        myers_distance_padded, myers_kernel_body, myers_layout, myers_plain,
+    )
+    from kgl_gene_tpu_torch.ops.traceback import tb_walk, tb_walk_plain
     from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
     from kgl_gene_tpu_torch.sequence.alphabet import DNA5
 
@@ -880,22 +1012,35 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
         f"B5 banded k={k} (P={P} all pairs, S={S})", "banded", errs,
         lambda: banded_distance(pa, pla, pb, plb, band_k=k),
         lambda: banded_plain(pa, pla, pb, plb, k), 2)
-    b_ms, by = bound(BANDED_OPS_PER_CELL * sum_la * (2 * k + 1), in_bytes)
+    ops = BANDED_OPS_PER_CELL * sum_la * (2 * k + 1)
+    b_ms, by = bound(ops, in_bytes)
     rows.append(dict(name="banded", source="kgl_gene_tpu_torch/csrc/banded.cu",
                      replaces="kgl_gene_tpu/ops/pallas_banded.py:76",
                      shape=f"P={P} all pairs, S={S}, k={k}", ms=ms, plain_ms=p_ms,
-                     bound_ms=b_ms, bound_by=by))
+                     bound_ms=b_ms, bound_by=by, int_ops=ops))
 
     NB = myers_layout(k)[1]
+    pool_body = myers_kernel_body(P, S, S, k)
     ms, p_ms = checked_times(
-        f"B1 myers pool per-pair text k={k}, NB={NB} (P={P} all pairs, S={S})", "myers_pool",
-        errs, lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k),
+        f"B1 myers pool per-pair text k={k}, NB={NB}, {pool_body} body (P={P} all pairs, S={S})",
+        "myers_pool", errs, lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k),
         lambda: myers_plain(pa, pla, pb, plb, k), 2)
-    b_ms, by = bound(MYERS_OPS_PER_BLOCK_COLUMN * NB * sum_lb, in_bytes)
+    ops = MYERS_OPS_PER_BLOCK_COLUMN * NB * sum_lb
+    b_ms, by = bound(ops, in_bytes)
+    other = "thread" if pool_body == "group" else "group"
+    errs["myers_pool"] = max(errs["myers_pool"], exact(
+        f"B1 myers pool, the {other} body vs the {pool_body} body",
+        myers_distance_padded(pa, pla, pb, plb, band_k=k, _body=other),
+        myers_distance_padded(pa, pla, pb, plb, band_k=k)))
+    ms, other_ms = time_cuda_turns(
+        [lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k),
+         lambda: myers_distance_padded(pa, pla, pb, plb, band_k=k, _body=other)], 3)
+    log(f"  B1 myers pool: {pool_body} body (the rule's) {ms:.6f} ms, {other} body {other_ms:.6f} ms")
     rows.append(dict(name="myers_pool", source="kgl_gene_tpu_torch/csrc/myers.cu",
                      replaces="kgl_gene_tpu/ops/pallas_myers.py:74",
-                     shape=f"P={P} all pairs, S={S}, k={k}, per-pair text", ms=ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by))
+                     shape=f"P={P} all pairs, S={S}, k={k}, per-pair text, {pool_body} body", ms=ms,
+                     **{f"{other}_body_ms": other_ms}, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                     int_ops=ops))
 
     # B3 over the same pairs: the all-pairs route when no band is given.
     # Held against the matrix the family phase holds exact, not the
@@ -929,19 +1074,46 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
         f"B4 banded_choices codes k={k} (B={n}, S={S}, the family's reference vs mutants)",
         "banded_choices", errs, lambda: banded_choices(ref_t, rl, pool, plens, band_k=k),
         lambda: banded_choices_plain(ref_t, rl, pool, plens, k, ref_t.shape[1]), 5)
-    codes = banded_choices(ref_t, rl, pool, plens, band_k=k)
+    choices = functools.partial(banded_choices, ref_t, rl, pool, plens, band_k=k)
+    old_choices = functools.partial(choices, _body="block")
+    old_ms = time_cuda(old_choices, 5, windows=3)
+    d_ms, old_d_ms = time_device([choices], 3), time_device([old_choices], 3)
+    codes = choices()
     code_bytes = codes.numel()
-    b_ms, by = bound(BANDED_CHOICES_OPS_PER_CELL * len(ref) * n * (2 * k + 1),
-                     code_bytes + 2 * n * S * 4 + 2 * n * 4)
+    ops = BANDED_CHOICES_OPS_PER_CELL * len(ref) * n * (2 * k + 1)
+    b_ms, by = bound(ops, code_bytes + 2 * n * S * 4 + 2 * n * 4)
+    log(f"  B4 banded_choices: warp body {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; block "
+        f"body (the earlier design) {old_ms:.6f} ms, {old_d_ms:.6f} ms device")
     rows.append(dict(name="banded_choices", source="kgl_gene_tpu_torch/csrc/banded.cu",
                      replaces="kgl_gene_tpu/ops/pallas_banded.py:185",
-                     shape=f"B={n}, S={S}, k={k}, (M, B, 2k+1) uint8 codes", ms=ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by))
+                     shape=f"B={n}, S={S}, k={k}, (M, B, 2k+1) uint8 codes", ms=ms, device_ms=d_ms,
+                     block_body_ms=old_ms, block_body_device_ms=old_d_ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=ops))
+
+    # The walk over those codes, at the tape length reference_cigars gives
+    # it. Its work depends on the data: the bound counts one 32-byte sector
+    # read for each live step of each pair and the tapes written once.
     M = max(len(ref), int(lens.max()), 1)
     steps = int(min(len(ref) + int(lens.max()), 2 * k + 1 + (M + 252) // 253 + 8))
-    walk_ms = time_cuda(lambda: tb_walk(codes, rl, plens, band_k=k, max_steps=steps), 1, windows=3)
-    log(f"  tb_walk (plain PyTorch) B={n}, k={k}, {steps} steps: {walk_ms:.6f} ms")
-    del codes
+    walk = functools.partial(tb_walk, codes, rl, plens, band_k=k, max_steps=steps)
+    walk_plain = functools.partial(tb_walk_plain, codes, rl, plens, band_k=k, max_steps=steps)
+    got, want = walk(), walk_plain()
+    errs["walk"] = max(errs["walk"],
+                       exact(f"walk ops (B={n}, k={k}, {steps} steps, the family's codes)",
+                             got[0], want[0]),
+                       exact("walk counts, the same", got[1], want[1]))
+    live = int((got[0] != 0).sum())
+    ms = time_cuda(walk, 20, windows=3)
+    d_ms = time_device([walk], 10)
+    p_ms = time_cuda(walk_plain, 1, windows=3, warm=False)
+    b_ms, by = bound(20 * live, 32 * live + n * steps * 5 + 2 * n * 4)
+    log(f"  walk kernel B={n}, k={k}, {steps} steps, {live} live steps ({live / n:.1f} a pair): "
+        f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; plain PyTorch loop {p_ms:.6f} ms")
+    rows.append(dict(name="walk", source="kgl_gene_tpu_torch/csrc/walk.cu",
+                     replaces="kgl_gene_tpu/ops/traceback.py:45",
+                     shape=f"B={n}, k={k}, {steps} steps, {live} live", ms=ms, device_ms=d_ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live))
+    del codes, got, want
 
     fam = TranscriptFamilyAnalysis(records, ref, device=dev)
     t_cig = wall(fam.reference_cigars)
@@ -978,7 +1150,7 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
-                          "myers_pool"), 0)
+                          "myers_pool", "walk"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -1020,10 +1192,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as workdir:
             family, seqs, lens, matrix = phase_family(dev, records, ref, workdir)
         launches["banded_choices"] = family["banded_choices"]
+        launches["walk"] = family["walk"]
         launches["myers_pool"] = family["myers"]
         doubling = phase_band_doubling(dev, seqs, lens, matrix)
         launches["banded"] = doubling["banded"]
-        phase_wide_cigars(dev)
+        phase_wide_cigars(dev, errs)
         log(f"  phase 3b: {time.perf_counter() - t0:.1f} s")
 
         phase = "times"
@@ -1038,19 +1211,28 @@ def main() -> int:
         return 1
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    # bound_ms sets integer operations against the float32 rate, as every
+    # earlier run did; issue_bound_ms sets the integer kernels' counts
+    # against the rate the card issues integer operations at. Neither may
+    # read above a time.
+    issue_rate = int_issue_rate()
+    log(f"integer issue rate: {issue_rate / 1e12:.3f} T/s (64 lanes x SMs x max SM clock)")
     report = []
     for r in rows:
-        if r["bound_ms"] > min(r["ms"], r.get("device_ms", r["ms"])):
-            print(f"chip_smoke: the bound of {r['name']} reads above its time", file=sys.stderr)
+        issue_ms = r["int_ops"] / issue_rate * 1e3 if "int_ops" in r else None
+        least = min(r["ms"], r.get("device_ms", r["ms"]))
+        if max(r["bound_ms"], issue_ms or 0.0) > least:
+            print(f"chip_smoke: a bound of {r['name']} reads above its time", file=sys.stderr)
             return 1
         report.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"], "launches": launches[r["name"]],
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("device_ms", "device_warm_ms", "library_device_ms",
-                                       "library_device_warm_ms") if key in r},
+            "library_ms": r["library_ms"], "issue_bound_ms": issue_ms,
+            **{key: val for key, val in r.items()
+               if ("_ms" in key or key.startswith("ms_"))
+               and key not in ("plain_ms", "bound_ms", "library_ms")},
         })
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())

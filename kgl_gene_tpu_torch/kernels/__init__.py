@@ -58,12 +58,22 @@ _SIGNATURES = {
     "kgt_wavefront": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
     # a, a_stride, Wa, text, text_stride, Wt, la, lb, out, B, band_k, stream
     "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+    # as kgt_myers, with body (1 group, 0 thread, -1 by the rule) before stream
+    "kgt_myers_with_body": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, band_k, stream
     "kgt_banded": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
-    # a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, B, M, band_k, stream
-    "kgt_banded_choices": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
+    # a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, M, band_k,
+    # body (1 warp, 0 block, -1 by the band), stream
+    "kgt_banded_choices": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # codes, row_stride, pair_stride, M, W, la, lb, ops, counts, B, band_k,
+    # max_steps, stream
+    "kgt_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # coding, row_stride, k, out -> 1 (vector body) or 0 (scalar); no launch
     "kgt_translate_body": (_P, _I, _I, _P),
+    # B, Wa, Wt, band_k -> 1 (group body) or 0 (thread); no launch
+    "kgt_myers_body": (_I, _I, _I, _I),
+    # band_k -> 1 (warp body) or 0 (block); no launch
+    "kgt_banded_choices_body": (_I,),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

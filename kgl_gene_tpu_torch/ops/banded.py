@@ -8,6 +8,18 @@ band layout and the same arithmetic, so each pair agrees bit for bit. On a
 CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
 
+B4 has two bodies, chosen by its launcher from the band alone
+(banded_choices_kernel_body says which). Up to band 255 a warp holds a
+pair, each lane 2 to 16 consecutive band cells in registers: the insertion
+chain is a serial prefix-min inside the lane, a three-round warp scan of
+the lanes' last values and a combine, with no block barrier in the row
+loop; a row's codes are made while the next row's scan is in flight and
+leave through a shared-memory stage in 16-byte stores. Wider bands,
+and B5, keep one thread per band cell and a block per pair. On the card
+the codes lie pair by pair (a pair's rows contiguous, the pair pitch a
+multiple of 16 bytes) and banded_choices returns the (M, B, 2k+1) view of
+that buffer, which ops/traceback.tb_walk reads by its strides.
+
 Band layout: cell c = j - i + k of row i holds D[i][j], over exactly 2k+1
 cells. The TPU's 128-lane padding, its `lead` sentinel pad of b
 (band_layout) and its BLOCK_B pair quantum are gone, and rows and columns
@@ -37,6 +49,7 @@ __all__ = [
     "MAX_BAND",
     "adaptive_banded_levenshtein",
     "banded_choices",
+    "banded_choices_kernel_body",
     "banded_choices_plain",
     "banded_distance",
     "banded_levenshtein",
@@ -44,7 +57,7 @@ __all__ = [
     "banded_plain",
 ]
 
-MAX_BAND = 511  # 2k+1 <= 1023 cells: one thread per cell in a block
+MAX_BAND = 511  # 2k+1 <= 1023 cells: one thread per cell in the block body
 BIG = 1 << 29   # out-of-band value, as in csrc/banded.cu
 RUN_CAP = 252   # match runs saturate so that code = run + 2 <= 255
 
@@ -159,21 +172,39 @@ def banded_distance(a, la, b, lb, *, band_k: int) -> torch.Tensor:
     return out
 
 
-def banded_choices(a, la, b, lb, *, band_k: int) -> torch.Tensor:
+CHOICES_BODIES = ("block", "warp")
+
+
+def banded_choices_kernel_body(band_k: int) -> str:
+    """Which body of kernel B4 a launch at band_k takes: 'warp' (a pair a
+    warp, a lane several cells) or 'block' (a pair a block, a thread a
+    cell). Asks the launcher's own rule; launches nothing."""
+    _check_band(band_k)
+    return CHOICES_BODIES[kernels.library().kgt_banded_choices_body(band_k)]
+
+
+def banded_choices(a, la, b, lb, *, band_k: int, _body: str | None = None) -> torch.Tensor:
     """Traceback codes, (max(Wa, 1), B, 2k+1) uint8: a (B, Wa) and b (B, Wb)
-    int32 codes, la, lb (B,) int32. On the card this launches kernel B4."""
+    int32 codes, la, lb (B,) int32. On the card this launches kernel B4 and
+    returns a view, not contiguous, of a buffer that holds the codes pair
+    by pair. _body names the kernel's body ('warp' or 'block') for
+    measurements that hold one beside the other; callers leave it to the
+    launcher's rule."""
     _check_band(band_k)
     rows = max(a.shape[1], 1)
     if a.device.type == "cpu":
         return banded_choices_plain(a, la, b, lb, band_k, rows)
     B = _check_pairs(a, la, b, lb)
-    codes = torch.empty((rows, B, 2 * band_k + 1), dtype=torch.uint8, device=a.device)
+    W = 2 * band_k + 1
+    pitch = -(-rows * W // 16) * 16
+    buf = torch.empty((B, pitch), dtype=torch.uint8, device=a.device)
     kernels.launch(
         "banded_choices", "kgt_banded_choices", a.device,
         a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
-        la.data_ptr(), lb.data_ptr(), codes.data_ptr(), B, rows, band_k,
+        la.data_ptr(), lb.data_ptr(), buf.data_ptr(), pitch, B, rows, band_k,
+        -1 if _body is None else CHOICES_BODIES.index(_body),
     )
-    return codes
+    return buf.as_strided((rows, B, W), (W, pitch, 1))
 
 
 def banded_levenshtein(seq_a, len_a, seq_b, len_b, band_k: int = 63,

@@ -8,6 +8,19 @@ version, with the same 64-row block layout and the same band window, so
 the two agree bit for bit on every input. On a CPU tensor the wrapper runs
 the plain version; on a CUDA tensor it launches the kernel or raises.
 
+The kernel has two bodies, chosen by its launcher from the shapes alone
+(myers_kernel_body says which). Launches that one thread a pair does not
+fill the card with (the forward step's few hundred to few thousand pairs,
+and up to 32,768 pairs at bands to 127) are bound by one pair's dependence
+chain, so a pair is spread over a group of NB lanes of a warp: each lane
+owns one block of the window, takes eight text columns a step one step
+behind the lane above, whose carries come by a warp shuffle, and the
+ownership rotates as the window slides; the Peq words sit in shared
+memory, built once per pair, and D[la][lb] is read down column lb by
+popcounts at the end. More pairs than that are bound by the rate the card
+issues integer operations at, and keep one thread per pair with the window
+in registers.
+
 Exactness contract (as in the JAX kernel): the result is >= the true
 distance, and equal to it iff result <= band_k and |la - lb| <= band_k.
 Pairs with |la - lb| > band_k return max(la, lb). Outside the contract the
@@ -38,6 +51,7 @@ __all__ = [
     "myers_banded_levenshtein",
     "myers_distance_padded",
     "myers_layout",
+    "myers_kernel_body",
     "myers_pairs_device",
     "myers_plain",
 ]
@@ -130,14 +144,27 @@ def myers_plain(a, la, text, lb, band_k: int) -> torch.Tensor:
     return result.to(torch.int32)
 
 
-def myers_distance_padded(a, la, b, lb, *, band_k: int):
+BODIES = ("thread", "group")
+
+
+def myers_kernel_body(B: int, Wa: int, Wb: int, band_k: int) -> str:
+    """Which body of kernel B1 a launch of B pairs at widths (Wa, Wb) takes:
+    'group' (a pair over NB lanes of a warp) or 'thread' (a pair a thread).
+    Asks the launcher's own rule; launches nothing."""
+    myers_layout(band_k)
+    return BODIES[kernels.library().kgt_myers_body(B, Wa, Wb, band_k)]
+
+
+def myers_distance_padded(a, la, b, lb, *, band_k: int, _body: str | None = None):
     """Banded Myers distances, the distance stage of the forward step.
 
     a: (B, Wa) int32 codes; la, lb: (B,) int32; b: (B, Wb) per-pair texts,
     or (1, Wb), one text shared by every pair (the mutant-vs-reference
     step, the JAX version's shared_b mode). On the card this launches
     kernel B1; the name is the JAX function's, though the pair axis is no
-    longer padded."""
+    longer padded. _body names the kernel's body ('group' or 'thread') for
+    measurements that hold one beside the other; callers leave it to the
+    launcher's rule."""
     myers_layout(band_k)
     if a.device.type == "cpu":
         return myers_plain(a, la, b, lb, band_k)
@@ -148,12 +175,13 @@ def myers_distance_padded(a, la, b, lb, *, band_k: int):
     if la.shape != (B,) or lb.shape != (B,):
         raise ValueError(f"la, lb must be ({B},), got {tuple(la.shape)}, {tuple(lb.shape)}")
     out = la.new_empty(B)
-    kernels.launch(
-        "myers", "kgt_myers", a.device,
-        a.data_ptr(), a.stride(0), a.shape[1],
-        b.data_ptr(), 0 if b.shape[0] == 1 else b.stride(0), b.shape[1],
-        la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
-    )
+    args = (a.data_ptr(), a.stride(0), a.shape[1],
+            b.data_ptr(), 0 if b.shape[0] == 1 else b.stride(0), b.shape[1],
+            la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k)
+    if _body is None:
+        kernels.launch("myers", "kgt_myers", a.device, *args)
+    else:
+        kernels.launch("myers", "kgt_myers_with_body", a.device, *args, BODIES.index(_body))
     return out
 
 

@@ -5,10 +5,12 @@ Counterpart of kgl_gene_tpu/ops/traceback.py. Three stages:
   1. Kernel B4 (ops/banded.banded_choices) runs the banded row DP and
      writes one uint8 traceback code per band cell, (M, B, 2k+1), which
      stays on the device.
-  2. tb_walk follows every pair's path at once from (la, lb) back to
-     (0, 0), one step per loop turn, and emits (op, count) run tapes; a
-     diagonal match run is one tape entry. Only the (B, steps) tapes
-     cross to the host.
+  2. tb_walk follows every pair's path from (la, lb) back to (0, 0) and
+     emits (op, count) run tapes; a diagonal match run is one tape entry.
+     On the card it is the kernel of csrc/walk.cu, one thread per pair,
+     in place of the JAX package's lax.scan; tb_walk_plain is its plain
+     PyTorch version, every pair at once, one step per loop turn. Only
+     the (B, steps) tapes cross to the host.
   3. The host turns each tape into a CIGAR string ("12M1X3M2D..."), the
      format of analysis/legacy.edit_items_to_cigar.
 
@@ -25,11 +27,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from .. import int32_on, resolve_device
+from .. import int32_on, kernels, resolve_device
 from ..analysis import legacy
 from .banded import banded_choices
 
-__all__ = ["OP_CHARS", "banded_traceback_ops", "batched_cigar", "tb_walk"]
+__all__ = ["OP_CHARS", "banded_traceback_ops", "batched_cigar", "tb_walk", "tb_walk_plain"]
 
 log = logging.getLogger(__name__)
 
@@ -40,17 +42,13 @@ OP_CHARS = {OP_M: "M", OP_X: "X", OP_D: "D", OP_I: "I"}
 CHUNK_CODE_BYTES = 3e9  # device memory for one chunk's traceback codes
 
 
-def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
-    """Joint path walk over the codes of kernel B4 ((M, B, 2k+1) uint8: 0
-    left, 1 up, 2 diagonal substitution, >= 3 diagonal match ending a run
-    of code - 2). la, lb (B,) lengths. Returns (ops, counts): (B,
-    max_steps) uint8 and int32 run tapes in reverse path order (end to
-    start). A match run moves code - 2 rows and columns in one step, so
-    the steps scale with the edits, not the length. Plain PyTorch: the
-    counterpart of the JAX package's lax.scan _tb_walk, not of a kernel."""
+def tb_walk_plain(codes, la, lb, *, band_k: int, max_steps: int):
+    """Plain PyTorch version of the walk (see tb_walk): every pair at once,
+    one step per loop turn, the counterpart of the JAX package's lax.scan
+    _tb_walk. Reads codes by its strides, so it takes the view
+    banded_choices returns on the card as well as a contiguous tensor."""
     M, B, W = codes.shape
     dev = codes.device
-    flat = codes.reshape(-1)
     pair = torch.arange(B, dtype=torch.int64, device=dev)
     i = la.to(torch.int64).clamp(min=0)
     j = lb.to(torch.int64).clamp(min=0)
@@ -60,7 +58,7 @@ def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
         done = (i <= 0) & (j <= 0)
         c = (j - i + band_k).clamp(0, W - 1)
         row = (i - 1).clamp(0, M - 1)
-        code = flat[(row * B + pair) * W + c].to(torch.int64)
+        code = codes[row, pair, c].to(torch.int64)
         both = (i > 0) & (j > 0)
         is_match = both & (code >= 3)
         take_diag = both & (code >= 2)
@@ -76,6 +74,36 @@ def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
         ops[s] = op.to(torch.uint8)
         counts[s] = count.to(torch.int32)
     return ops.T, counts.T
+
+
+def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
+    """Path walk over the codes of kernel B4 ((M, B, 2k+1) uint8: 0 left, 1
+    up, 2 diagonal substitution, >= 3 diagonal match ending a run of
+    code - 2). la, lb (B,) lengths. Returns (ops, counts): (B, max_steps)
+    uint8 and int32 run tapes in reverse path order (end to start),
+    OP_END with count 0 after the end. A match run moves code - 2 rows and
+    columns in one step, so the steps scale with the edits, not the
+    length. On a CUDA tensor this launches the walk kernel (csrc/walk.cu)
+    or raises; on a CPU tensor it runs tb_walk_plain."""
+    if codes.device.type == "cpu":
+        return tb_walk_plain(codes, la, lb, band_k=band_k, max_steps=max_steps)
+    M, B, W = codes.shape
+    kernels.check_args(torch.int32, la=la, lb=lb)
+    if not codes.is_cuda or codes.dtype is not torch.uint8:
+        raise TypeError(f"codes must be uint8 on the card, got {codes.dtype} on {codes.device}")
+    if W != 2 * band_k + 1 or M < 1 or codes.stride(2) != 1:
+        raise ValueError(f"codes must be (M >= 1, B, {2 * band_k + 1}) with unit cell stride, "
+                         f"got {tuple(codes.shape)}, strides {codes.stride()}")
+    if la.shape != (B,) or lb.shape != (B,):
+        raise ValueError(f"la, lb must be ({B},), got {tuple(la.shape)}, {tuple(lb.shape)}")
+    ops = torch.empty((B, max_steps), dtype=torch.uint8, device=codes.device)
+    counts = torch.empty((B, max_steps), dtype=torch.int32, device=codes.device)
+    kernels.launch(
+        "walk", "kgt_walk", codes.device,
+        codes.data_ptr(), codes.stride(0), codes.stride(1), M, W,
+        la.data_ptr(), lb.data_ptr(), ops.data_ptr(), counts.data_ptr(), B, band_k, max_steps,
+    )
+    return ops, counts
 
 
 def banded_traceback_ops(seq_a, len_a, seq_b, len_b, band_k: int = 127, device=None):

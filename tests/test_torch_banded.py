@@ -199,3 +199,171 @@ def test_band_limits_and_cuda_only_checks():
     with pytest.raises(ValueError):
         banded_choices(a, n, a, n, band_k=-1)
     assert banded_choices(a, n, a, n, band_k=MAX_BAND).shape == (4, 1, 2 * MAX_BAND + 1)
+
+
+# --- The warp body of kernel B4 (csrc/banded.cu), lane by lane -------------
+#
+# A Python mirror of banded_choices_warp_kernel: 32 lanes of C consecutive
+# band cells each, the neighbour's first cell for `up`, the serial
+# prefix-min inside a lane, the warp scan of the lanes' last values and the
+# combine, the fast path of lanes away from the matrix's edges with its
+# one pad cell, and the staging of a pair's code stream into 16-byte units
+# at a padded pair pitch. Held against banded_choices_plain, which
+# test_torch_traceback.py holds against the JAX package through the tapes.
+
+_BIG = 1 << 29
+
+
+_SCAN_BIG = 1 << 30
+
+
+def _masked_min(vals, offsets, own):
+    """Per lane the min of vals[lane - off] over `offsets` (a lane that has
+    no such source reads _SCAN_BIG), and of its own value if `own`."""
+    return [min([vals[t]] * own + [vals[t - off] if t >= off else _SCAN_BIG for off in offsets])
+            for t in range(32)]
+
+
+def banded_choices_warp_mirror(a, la_arr, b, lb_arr, k, M):
+    B, Wa = a.shape
+    Wb = b.shape[1]
+    W = 2 * k + 1
+    cells = -(-W // 32)
+    C = next(c for c in (2, 4, 8, 16) if cells <= c)
+    pitch = -(-M * W // 16) * 16
+    buf = np.full((B, pitch), 0xEE, np.uint8)  # every byte must be written
+    stage_rows = 16
+    for p in range(B):
+        la = min(max(int(la_arr[p]), 0), Wa)
+        lb = min(max(int(lb_arr[p]), 0), Wb)
+        ldb = lambda idx: int(b[p, min(max(idx, 0), Wb - 1)]) if Wb > 0 else 0
+        n_real = [min(max(W - t * C, 0), C) for t in range(32)]
+        prev = [[(t * C + x - k) if (t * C + x < W and 0 <= t * C + x - k <= lb) else _BIG
+                 for x in range(C)] for t in range(32)]
+        run = [[0] * C for _ in range(32)]
+        bw = [[ldb(t * C + x - k) for x in range(C)] for t in range(32)]
+        b_next = [ldb(t * C + C - k) for t in range(32)]
+        stage = np.zeros(stage_rows * W + 32, np.uint8)
+        org = 0
+        for i in range(1, la + 1):
+            ai = int(a[p, i - 1])
+            nb = [prev[t + 1][0] if t < 31 else _BIG for t in range(32)]
+            j_hi = min(lb, i + k)
+            lane_rows, g = [], []
+            for t in range(32):
+                jbase = i - k + t * C
+                edge = n_real[t] < C - 1 or jbase < 1 or jbase + n_real[t] - 1 > lb
+                up, diag, loc, ne = [], [], [], []
+                m = 0
+                for x in range(C):
+                    jx = jbase + x
+                    valid = (not edge) or 0 <= jx <= j_hi
+                    up.append((prev[t][x + 1] if x < C - 1 else nb[t]) + 1)
+                    ne.append(True if edge and not (valid and jx >= 1) else ai != bw[t][x])
+                    diag.append(prev[t][x] + int(ne[x]))
+                    base = min(up[x], diag[x])
+                    if edge:
+                        if jx == 0:
+                            base = i
+                        if not valid:
+                            base = _BIG
+                    m = base if x == 0 else min(m + 1, base)
+                    loc.append(m)
+                lane_rows.append((edge, jbase, up, diag, loc, ne))
+                g.append(loc[C - 1] - C * t)
+            # Exclusive prefix-min in three rounds: the 4 lanes before, 16, all.
+            g = _masked_min(g, (1, 2, 3, 4), own=False)
+            g = _masked_min(g, (4, 8, 12), own=True)
+            g = _masked_min(g, (16,), own=True)
+            for t in range(32):
+                edge, jbase, up, diag, loc, ne = lane_rows[t]
+                carry0 = g[t] + C * t - C + 1
+                for x in range(C):
+                    valid = (not edge) or 0 <= jbase + x <= j_hi
+                    cur = min(carry0 + x, loc[x])
+                    if edge and not valid:
+                        cur = _BIG
+                    if not edge and x == C - 1 and n_real[t] == C - 1:
+                        cur = _BIG
+                    is_diag = cur == diag[x]
+                    is_match = is_diag and not ne[x]
+                    run[t][x] = min(run[t][x], 252) + 1 if valid and is_match else 0
+                    cd = run[t][x] + 2 if is_match else 2 if is_diag else int(cur == up[x])
+                    if edge and not valid:
+                        cd = 0
+                    prev[t][x] = cur
+                    if x < n_real[t]:
+                        stage[(i - 1) * W - org + t * C + x] = cd
+                bw[t] = bw[t][1:] + [b_next[t]]
+                b_next[t] = ldb(i - k + t * C + C)
+            if i % stage_rows == 0 or i == la:
+                filled = i * W - org
+                units, rem = filled >> 4, filled & 15
+                buf[p, org : org + 16 * units] = stage[: 16 * units]
+                keep = stage[16 * units : 16 * units + rem].copy()
+                stage[:16] = 0
+                stage[:rem] = keep
+                org += 16 * units
+        if la * W > org:
+            buf[p, org : org + 16] = stage[:16]
+            org += 16
+        buf[p, org:] = 0
+    return np.lib.stride_tricks.as_strided(buf, (M, B, W), (W, pitch, 1))
+
+
+def _choices_case(rng, B, S, edits):
+    ref = rng.integers(0, 4, S).astype(np.int32)
+    a = np.zeros((B, S), np.int32)
+    b = np.zeros((B, S + 12), np.int32)
+    la = np.zeros(B, np.int32)
+    lb = np.zeros(B, np.int32)
+    for i in range(B):
+        mut = list(ref)
+        for _ in range(int(rng.integers(0, edits + 1))):
+            q = int(rng.integers(0, len(mut)))
+            r = rng.random()
+            if r < 0.6:
+                mut[q] = int((mut[q] + 1 + rng.integers(0, 3)) % 4)
+            elif r < 0.8 and len(mut) > 1:
+                del mut[q]
+            elif len(mut) < S + 12:
+                mut.insert(q, int(rng.integers(0, 4)))
+        la[i] = S - int(rng.integers(0, 9))
+        a[i, : la[i]] = ref[: la[i]]
+        a[i, la[i]:] = 7  # pads that must never be compared
+        lb[i] = len(mut)
+        b[i, : lb[i]] = mut
+        b[i, lb[i]:] = 7
+    if B > 3:
+        la[1] = 0
+        lb[2] = 0
+        b[3, : lb[3]] = rng.integers(0, 4, lb[3])  # unrelated
+    if B > 4:
+        lb[4] = max(lb[4] - 40, 0)  # a length gap beyond the narrow bands
+    return a, la, b, lb
+
+
+@pytest.mark.parametrize("k,S,B,edits", [
+    (31, 150, 6, 10), (63, 200, 5, 40), (127, 300, 4, 60), (255, 330, 3, 100),
+    (7, 90, 6, 4), (15, 70, 5, 6), (0, 20, 3, 0), (40, 130, 1, 12),
+])
+def test_choices_warp_body_mirror_equals_plain(k, S, B, edits):
+    rng = np.random.default_rng(k + S)
+    a, la, b, lb = _choices_case(rng, B, S, edits)
+    want = banded_choices(*(torch.as_tensor(x) for x in (a, la, b, lb)), band_k=k).numpy()
+    got = banded_choices_warp_mirror(a, la, b, lb, k, max(S, 1))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_choices_warp_body_mirror_saturated_runs_and_empty_b():
+    rng = np.random.default_rng(3)
+    s = rng.integers(0, 4, (2, 600)).astype(np.int32)
+    n = np.array([600, 600], np.int32)
+    want = banded_choices(*(torch.as_tensor(x) for x in (s, n, s, n)), band_k=31).numpy()
+    assert int(want.max()) == 255
+    np.testing.assert_array_equal(banded_choices_warp_mirror(s, n, s, n, 31, 600), want)
+    e = np.zeros((2, 0), np.int32)
+    z = np.zeros(2, np.int32)
+    want = banded_choices(*(torch.as_tensor(x) for x in (s[:, :40], n // 15, e, z)), band_k=31)
+    np.testing.assert_array_equal(
+        banded_choices_warp_mirror(s[:, :40], n // 15, e, z, 31, 40), want.numpy())

@@ -158,3 +158,206 @@ def test_kernel_wrapper_refuses_non_cpu_tensors_it_cannot_launch():
     n = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="on the card"):
         myers_distance_padded(x, n, x, n, band_k=31)
+
+
+# --- The group body of csrc/myers.cu, lane by lane -------------------------
+#
+# A Python mirror of myers_group_kernel: groups of NB lanes in a 32-lane
+# warp, block beta in lane beta mod NB working on the four columns from
+# 4 (s - beta) at step s, the carries read from the lane above as that lane
+# left them one step earlier, rotating ownership at the window's slide,
+# and D[la][lb] read down column lb from the blocks' vertical deltas where
+# each stopped. Held against myers_plain, which the tests above hold
+# against the JAX kernel and the oracle.
+
+_M64 = (1 << 64) - 1
+
+
+_COLS = 8  # text columns a step
+
+
+def _column(eq, h, vp, vn):
+    """One column through a 64-row block; h and the result hold ph (bit 0)
+    and mh (bit 1). Returns (carries out, vp, vn)."""
+    ph_in, mh_in = h & 1, (h >> 1) & 1
+    xv = eq | vn
+    eq2 = eq | mh_in
+    xh = ((((eq2 & vp) + vp) & _M64) ^ vp) | eq2
+    ph = (vn | ~(xh | vp)) & _M64
+    mh = vp & xh
+    out = (ph >> 63) | ((mh >> 63) << 1)
+    ph = ((ph << 1) | ph_in) & _M64
+    mh = ((mh << 1) | mh_in) & _M64
+    return out, (mh | ~(xv | ph)) & _M64, ph & xv
+
+
+def myers_group_mirror(a, la_arr, text, lb_arr, band_k):
+    shift, NB = myers_layout(band_k)
+    B, Wa = a.shape
+    Wt = text.shape[1]
+    ppw = 32 // NB
+    reach = max(((Wt - 1) >> 6) - shift, 0) if Wt > 0 else 0
+    nblk = max(-(-Wa // 64), reach + NB)
+    out = np.zeros(B, np.int64)
+    for p0 in range(0, B, ppw):
+        npairs = min(ppw, B - p0)
+        peq = np.zeros((ppw, 6, nblk), dtype=object)
+        peq[:] = 0
+        for g in range(npairs):
+            la_g = min(max(int(la_arr[p0 + g]), 0), Wa)
+            for i in range(la_g):
+                c = int(a[p0 + g, i])
+                if 0 <= c < 5:
+                    peq[g, c, i >> 6] |= 1 << (i & 63)
+        lanes = []
+        for lane in range(32):
+            grp, l = divmod(lane, NB)
+            has = grp < ppw and p0 + grp < B
+            p = p0 + grp if has else p0
+            la = min(max(int(la_arr[p]), 0), Wa)
+            lb = min(max(int(lb_arr[p]), 0), Wt)
+            outside = abs(la - lb) > band_k
+            lb_run = lb if has and not outside else 0
+            st = dict(has=has, p=p, l=l, la=la, lb=lb, outside=outside, lb_run=lb_run,
+                      grp=grp if has else 0, la_blk=(la - 1) >> 6 if la > 0 else -1,
+                      la_pos=(la - 1) & 63, beta=l, vp=_M64, vn=0, carry=0, partial=0,
+                      src=lane - l + (l + NB - 1) % NB if has else lane,
+                      steps=(-(-lb_run // _COLS) + max(0, ((lb_run - 1) >> 6) - shift) + NB - 1)
+                      if lb_run > 0 else 0)
+            lanes.append(st)
+
+        def enter(st):
+            beta = st["beta"]
+            st["lo"] = 0 if beta < NB else 64 * (beta - shift)
+            end_j = 64 * (beta + shift + 1)
+            st["change_at"] = end_j // _COLS + beta
+            st["hi"] = max(min(st["lb_run"], end_j), st["lo"])
+            st["top_from"] = -(2 ** 31) if beta == 0 else 64 * (beta + shift)
+            st["blk"] = min(beta, nblk - 1)
+
+        def rows_total(st):
+            """Vertical deltas of the lane's block, rows <= la, where it stopped."""
+            beta = st["beta"]
+            if st["lo"] >= st["lb_run"] or beta > st["la_blk"]:
+                return 0
+            rows = _M64 if beta < st["la_blk"] else (1 << (st["la_pos"] + 1)) - 1
+            return bin(st["vp"] & rows).count("1") - bin(st["vn"] & rows).count("1")
+
+        t_last = max(Wt - 1, 0)
+        trow = lambda st: text[st["p"] if text.shape[0] > 1 else 0]
+        clamp = lambda j: j if 0 <= j <= t_last else t_last  # unsigned min
+        symbols = lambda st, j: [int(trow(st)[clamp(j + u)]) if Wt > 0 else 0
+                                 for u in range(_COLS)]
+        for st in lanes:
+            enter(st)
+            st["c_next"] = symbols(st, _COLS * (0 - st["beta"]))
+            st["c_after"] = symbols(st, _COLS * (1 - st["beta"]))
+        for s in range(max(st["steps"] for st in lanes)):
+            carries = [st["carry"] for st in lanes]  # as the shuffle sees them
+            for st in lanes:
+                if s == st["change_at"]:
+                    st["partial"] += rows_total(st)
+                    st["beta"] += NB
+                    st["vp"], st["vn"] = _M64, 0
+                    enter(st)
+                j0 = _COLS * (s - st["beta"])
+                hh = 0x5555 if j0 >= st["top_from"] else carries[st["src"]]
+                c = st["c_next"]  # loaded two steps ahead
+                st["c_next"] = st["c_after"]
+                st["c_after"] = symbols(st, j0 + 2 * _COLS)
+                if not st["lo"] <= j0 < st["hi"]:
+                    continue
+                vp, vn, out_bits = st["vp"], st["vn"], 0
+                for u in range(_COLS):
+                    if j0 + u < st["hi"]:  # fewer than COLS only in the pair's last step
+                        eq = peq[st["grp"], c[u] if 0 <= c[u] < 5 else 5, st["blk"]]
+                        o, vp, vn = _column(eq, hh >> (2 * u), vp, vn)
+                        out_bits |= o << (2 * u)
+                st["vp"], st["vn"], st["carry"] = vp, vn, out_bits
+        for st in lanes:
+            st["partial"] += rows_total(st)
+        for lane, st in enumerate(lanes):
+            if st["has"] and st["l"] == 0:
+                total = sum(lanes[min(lane + t, 31)]["partial"] for t in range(NB))
+                lbr = st["lb_run"]
+                reached = 64 * (max(0, ((lbr - 1) >> 6) - shift) + NB) if lbr > 0 else 0
+                score = st["lb"] + total + max(0, st["la"] - reached)
+                if st["outside"]:
+                    score = max(st["la"], st["lb"])
+                out[st["p"]] = score
+    return out
+
+
+def _mirror_case(rng, B, Wa, Wt, edits, shared):
+    """Related pairs with substitutions and indels, ragged la and lb, and
+    among them la = 0, lb = 0, an unrelated pair, a length gap beyond every
+    band, la on block edges, and codes outside DNA5."""
+    ref = rng.integers(0, 5, max(Wa, Wt)).astype(np.int32)
+    a = np.zeros((B, Wa), np.int32)
+    la = np.zeros(B, np.int32)
+    for i in range(B):
+        mut = _indel_mutate(rng, ref[:Wa], int(rng.integers(0, edits + 1)))[:Wa]
+        a[i, : len(mut)] = mut
+        la[i] = len(mut) - min(len(mut), int(rng.integers(0, 12)))
+    if shared:
+        text = ref[None, :Wt].copy()
+    else:
+        text = np.tile(ref[:Wt], (B, 1))
+        hit = rng.random(text.shape) < 0.01
+        text[hit] = rng.integers(0, 7, int(hit.sum()))  # 5, 6 match nothing
+    lb = (Wt - rng.integers(0, 12, B)).clip(0).astype(np.int32)
+    edges = [e for e in (63, 64, 65, 128) if e <= Wa]
+    la[: len(edges)] = edges[: B]
+    if B > 6:
+        la[4], lb[5] = 0, 0
+        a[6] = rng.integers(0, 5, Wa)  # unrelated
+    if B > 7:
+        la[7], lb[7] = 0, 0
+    if B > 8:
+        lb[8] = max(Wt - 600, 0)
+    a[0, Wa // 2] = 9  # a pattern code outside DNA5
+    return a, la, text, lb
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_pair"])
+@pytest.mark.parametrize("band_k,Wa,Wt,B", [
+    (31, 200, 210, 23), (63, 330, 300, 11), (127, 700, 720, 13),
+    (255, 1300, 1290, 7), (511, 2300, 2330, 3), (63, 64, 64, 10), (31, 700, 40, 9),
+    (63, 100, 900, 5),
+])
+def test_group_body_mirror_equals_plain(band_k, Wa, Wt, B, shared):
+    rng = np.random.default_rng(band_k + Wa + B)
+    a, la, text, lb = _mirror_case(rng, B, Wa, Wt, band_k + band_k // 2, shared)
+    want = myers_distance_padded(*(torch.as_tensor(x) for x in (a, la, text, lb)),
+                                 band_k=band_k).numpy()
+    got = myers_group_mirror(a, la, text, lb, band_k)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_group_body_mirror_single_pair_and_empty_text():
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 5, (1, 130)).astype(np.int32)
+    for la, lb in ((130, 130), (128, 100), (0, 90), (64, 0)):
+        t = a[:, :lb].copy() if lb else np.zeros((1, 0), np.int32)
+        want = myers_distance_padded(torch.as_tensor(a), torch.tensor([la], dtype=torch.int32),
+                                     torch.as_tensor(t), torch.tensor([lb], dtype=torch.int32),
+                                     band_k=63).numpy()
+        got = myers_group_mirror(a, np.array([la]), t, np.array([lb]), 63)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("band_k,seed", [(31, 0), (63, 1), (127, 2), (255, 3), (511, 4), (63, 5)])
+def test_group_body_mirror_outside_the_contract(band_k, seed):
+    """Unrelated sequences of random lengths: most pairs lie outside the
+    exactness contract, where the result depends on the 64-row window
+    alone and must still be the plain version's."""
+    rng = np.random.default_rng(seed)
+    B, Wa, Wt = 9, int(rng.integers(60, 800)), int(rng.integers(60, 800))
+    a = rng.integers(0, 5, (B, Wa)).astype(np.int32)
+    text = rng.integers(0, 5, (B, Wt)).astype(np.int32)
+    la = rng.integers(0, Wa + 1, B).astype(np.int32)
+    lb = rng.integers(0, Wt + 1, B).astype(np.int32)
+    lb[:3] = (la[:3] + rng.integers(-20, 21, 3)).clip(0, Wt)  # inside the band by length
+    want = myers_distance_padded(*(torch.as_tensor(x) for x in (a, la, text, lb)),
+                                 band_k=band_k).numpy()
+    np.testing.assert_array_equal(myers_group_mirror(a, la, text, lb, band_k), want)

@@ -28,7 +28,9 @@ from kgl_gene_tpu.ops.traceback import banded_traceback_ops as j_tapes
 from kgl_gene_tpu.ops.traceback import batched_cigar as j_cigar
 from kgl_gene_tpu.sequence.sequence import DNA5SequenceLinear
 from kgl_gene_tpu_torch.ops.banded import RUN_CAP, banded_choices
-from kgl_gene_tpu_torch.ops.traceback import banded_traceback_ops, batched_cigar
+from kgl_gene_tpu_torch.ops.traceback import (
+    banded_traceback_ops, batched_cigar, tb_walk, tb_walk_plain,
+)
 import test_legacy_and_device_sim as legacy_cases
 
 _mutate = legacy_cases.TestBatchedTraceback()._mutate
@@ -194,3 +196,102 @@ def test_compare_sequences_and_cigar_equal_jax(seed):
     assert [dataclasses.astuple(x) for x in got] == [dataclasses.astuple(x) for x in want]
     assert (t_legacy.edit_items_to_cigar(got, len(ref))
             == j_legacy.edit_items_to_cigar(want, len(ref)))
+
+
+# --- The walk kernel (csrc/walk.cu), pair by pair ---------------------------
+#
+# A Python mirror of walk_kernel: one sequential loop per pair over the
+# codes' bytes, addressed by the strides the wrapper hands the kernel.
+# Held against tb_walk_plain (which tb_walk runs on a CPU tensor and the
+# tests above hold against the JAX package's lax.scan through the tapes).
+
+def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps):
+    M, B, W = codes.shape
+    flat = np.lib.stride_tricks.as_strided(codes, (_span(codes),), (1,))
+    row_stride, pair_stride, _ = codes.strides
+    ops = np.full((B, max_steps), 99, np.uint8)
+    counts = np.full((B, max_steps), -1, np.int32)
+    for p in range(B):
+        i, j = max(int(la_arr[p]), 0), max(int(lb_arr[p]), 0)
+        for s in range(max_steps):
+            if i <= 0 and j <= 0:
+                ops[p, s], counts[p, s] = 0, 0
+                continue
+            c = min(max(j - i + band_k, 0), W - 1)
+            row = min(max(i - 1, 0), M - 1)
+            code = int(flat[row * row_stride + p * pair_stride + c])
+            both = i > 0 and j > 0
+            is_match = both and code >= 3
+            take_diag = both and code >= 2
+            take_up = (both and code == 1) or (i > 0 and j <= 0)
+            take_left = not take_diag and not take_up
+            count = max(code - 2, 1) if is_match else 1
+            ops[p, s] = (1 if is_match else 2) if take_diag else 3 if take_up else 4
+            counts[p, s] = count
+            if not take_left:
+                i -= count
+            if not take_up:
+                j -= count
+    return ops, counts
+
+
+def _span(x):
+    return 1 + sum((n - 1) * s for n, s in zip(x.shape, x.strides))
+
+
+def _walk_inputs(seed, band_k, n=10, S=150):
+    a, la, b, lb = _fuzz_pairs(seed=seed, n=n, S=S)
+    la, lb = la.copy(), lb.copy()
+    la[0], lb[1] = 0, 0
+    la[2], lb[2] = 0, 0
+    b[3, : lb[3]] = np.random.default_rng(seed).integers(0, 4, lb[3])  # outside the band
+    t = [torch.as_tensor(np.asarray(x, np.int32)) for x in (a, la, b, lb)]
+    return banded_choices(*t, band_k=band_k), t[1], t[3]
+
+
+@pytest.mark.parametrize("pair_major", [False, True], ids=["row_major", "pair_major_view"])
+@pytest.mark.parametrize("band_k,max_steps", [(7, 60), (31, 140), (31, 9), (63, 300)])
+def test_walk_mirror_equals_plain(band_k, max_steps, pair_major):
+    codes, la, lb = _walk_inputs(band_k, band_k)
+    if pair_major:  # the layout banded_choices hands out on the card
+        M, B, W = codes.shape
+        pitch = -(-M * W // 16) * 16
+        buf = torch.zeros((B, pitch), dtype=torch.uint8)
+        view = buf.as_strided((M, B, W), (W, pitch, 1))
+        view.copy_(codes)
+        codes = view
+        assert not codes.is_contiguous()
+    ops, counts = tb_walk(codes, la, lb, band_k=band_k, max_steps=max_steps)
+    p_ops, p_counts = tb_walk_plain(codes, la, lb, band_k=band_k, max_steps=max_steps)
+    assert torch.equal(ops, p_ops) and torch.equal(counts, p_counts)
+    m_ops, m_counts = walk_mirror(codes.numpy(), la.numpy(), lb.numpy(), band_k, max_steps)
+    assert m_ops.shape == tuple(ops.shape) and m_counts.dtype == np.int32
+    np.testing.assert_array_equal(m_ops, ops.numpy())
+    np.testing.assert_array_equal(m_counts, counts.numpy())
+
+
+def test_walk_mirror_saturated_runs_and_arbitrary_codes():
+    rng = np.random.default_rng(1)
+    s = torch.as_tensor(rng.integers(0, 4, size=(1, 600)).astype(np.int32))
+    n = torch.tensor([600], dtype=torch.int32)
+    codes = banded_choices(s, n, s, n, band_k=7)
+    ops, counts = tb_walk(codes, n, n, band_k=7, max_steps=12)
+    m_ops, m_counts = walk_mirror(codes.numpy(), n.numpy(), n.numpy(), 7, 12)
+    np.testing.assert_array_equal(m_counts, counts.numpy())
+    np.testing.assert_array_equal(m_counts[0, :4], [253, 253, 94, 0])
+    np.testing.assert_array_equal(m_ops, ops.numpy())
+    # Any bytes at all, lengths beyond the rows: the clamps keep both inside.
+    junk = torch.as_tensor(rng.integers(0, 256, size=(20, 5, 15)).astype(np.uint8))
+    la = torch.tensor([20, 25, 3, 0, 19], dtype=torch.int32)
+    lb = torch.tensor([20, 9, 30, 6, -4], dtype=torch.int32)
+    ops, counts = tb_walk_plain(junk, la, lb, band_k=7, max_steps=50)
+    m_ops, m_counts = walk_mirror(junk.numpy(), la.numpy(), lb.numpy(), 7, 50)
+    np.testing.assert_array_equal(m_ops, ops.numpy())
+    np.testing.assert_array_equal(m_counts, counts.numpy())
+
+
+def test_walk_wrapper_refuses_what_the_kernel_does_not_take():
+    codes = torch.zeros((4, 2, 15), dtype=torch.uint8, device="meta")
+    n = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="on the card"):
+        tb_walk(codes, n, n, band_k=7, max_steps=5)
