@@ -18,13 +18,15 @@ after:
      held against the same analysis on the CPU; then the B5 band doubling
      over the same pairs and batched_cigar on wide edits.
 
-B1 (banded Myers) and B4 (traceback codes) each have two bodies that
-their launchers choose between from the shapes alone; each body is held
-against the plain version at every band, the script prints which body each
-shape takes, and it fails unless the forward step's shapes take B1's group
-body, a launch of 9,000 pairs at band 511 its thread body, and the
-family's band B4's warp body. The walk over B4's codes (csrc/walk.cu) is held against its plain
-PyTorch loop at the family's shape and on the wide-edit pairs.
+B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
+have two bodies that their launchers choose between from the shapes
+alone; each body is held against the plain version at every band, the
+script prints which body each shape takes, and it fails unless the
+forward step's shapes take B1's group body, a launch of 9,000 pairs at
+band 511 its thread body, the family's band B4's warp body, and B5 its
+warp body up to band 255 and its block body above. The walk over B4's
+codes (csrc/walk.cu) is held against its plain PyTorch loop at the
+family's shape and on the wide-edit pairs.
 
 Then it times the step, the family path and each kernel; the family
 path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
@@ -32,7 +34,7 @@ their plain versions at the shapes they are timed at. Kernels are timed
 two ways: host-inclusive (back-to-back calls between two events, which
 reads the host's rate of issuing them when the kernel is short) and on the
 device alone (the calls captured into one CUDA graph, events around a
-replay); B1 and B4 with the body they replaced beside the new one. Each
+replay); B1, B4 and B5 with the body they replaced beside the new one. Each
 row of the kernels line carries bound_ms (integer operations set against
 the card's float32 rate, as every earlier run computed it) and
 issue_bound_ms (the same operations against the rate the card issues
@@ -683,17 +685,30 @@ def phase_banded_kernels(dev, errs):
 
     from kgl_gene_tpu_torch.ops.banded import (
         banded_choices, banded_choices_kernel_body, banded_choices_plain, banded_distance,
-        banded_plain,
+        banded_kernel_body, banded_plain,
     )
     from kgl_gene_tpu_torch.ops.myers import myers_distance_padded, myers_plain
 
     rng = np.random.default_rng(SEED + 2)
     a, la, b, lb = (torch.as_tensor(x, device=dev) for x in banded_case(rng, 256))
     B = a.shape[0]
-    for k in (15, 63, 127, 511):
-        errs["banded"] = max(errs["banded"], exact(
-            f"B5 banded k={k} (B={B}, S={S}, ragged, indels, la=0, lb=0, gaps > k)",
-            banded_distance(a, la, b, lb, band_k=k), banded_plain(a, la, b, lb, k)))
+    # B5 in each body a launch can take: the warp body by the rule up to
+    # band 255, the block body named at band 127 and by the rule at 511;
+    # at B = 256, 255 and 1. The plain version is per pair, so its first n
+    # results are those of the first n pairs.
+    taken = {}
+    for k in (0, 15, 63, 127, 255, 511):
+        want = banded_plain(a, la, b, lb, k)
+        taken[k] = banded_kernel_body(k)
+        runs = [(n, None) for n in (B, B - 1, 1)] + ([(B, "block")] if k == 127 else [])
+        for n, body in runs:
+            how = f"the rule: {taken[k]}" if body is None else body
+            errs["banded"] = max(errs["banded"], exact(
+                f"B5 banded k={k} (B={n}, S={S}, ragged, indels, la=0, lb=0, gaps > k), {how} body",
+                banded_distance(a[:n], la[:n], b[:n], lb[:n], band_k=k, _body=body), want[:n]))
+    log(f"  B5 bodies by band: {taken}")
+    if any(body != ("warp" if k <= 255 else "block") for k, body in taken.items()):
+        raise AssertionError("B5 does not take the warp body up to band 255 and the block body above")
     # B4 over the whole tensor in each body a launch can take: the warp
     # body up to band 255 (the block body named beside it), the block body
     # at 511. Ragged lengths, indels, la = 0, lb = 0, unrelated pairs and
@@ -985,7 +1000,7 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     from kgl_gene_tpu_torch import kernels
     from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
     from kgl_gene_tpu_torch.ops.banded import (
-        banded_choices, banded_choices_plain, banded_distance, banded_plain,
+        banded_choices, banded_choices_plain, banded_distance, banded_kernel_body, banded_plain,
     )
     from kgl_gene_tpu_torch.ops.edit_distance import pairwise_distance_matrix
     from kgl_gene_tpu_torch.ops.myers import (
@@ -1008,15 +1023,26 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     rows = []
 
     k = 127
-    ms, p_ms = checked_times(
-        f"B5 banded k={k} (P={P} all pairs, S={S})", "banded", errs,
-        lambda: banded_distance(pa, pla, pb, plb, band_k=k),
-        lambda: banded_plain(pa, pla, pb, plb, k), 2)
+    banded = functools.partial(banded_distance, pa, pla, pb, plb, band_k=k)
+    old_banded = functools.partial(banded, _body="block")
+    body = banded_kernel_body(k)
+    plain = functools.partial(banded_plain, pa, pla, pb, plb, k)
+    want = plain()
+    for name, fn in ((f"the rule: {body}", banded), ("block", old_banded)):
+        errs["banded"] = max(errs["banded"], exact(
+            f"B5 banded k={k} (P={P} all pairs, S={S}), {name} body", fn(), want))
+    del want
+    p_ms = time_cuda(plain, 1, windows=1, warm=False)
+    ms, old_ms = time_cuda_turns([banded, old_banded], 2, windows=3)
+    d_ms, old_d_ms = time_device([banded], 2), time_device([old_banded], 2)
     ops = BANDED_OPS_PER_CELL * sum_la * (2 * k + 1)
     b_ms, by = bound(ops, in_bytes)
+    log(f"  B5 banded: {body} body (the rule's) {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; "
+        f"block body (the earlier design) {old_ms:.6f} ms, {old_d_ms:.6f} ms device")
     rows.append(dict(name="banded", source="kgl_gene_tpu_torch/csrc/banded.cu",
                      replaces="kgl_gene_tpu/ops/pallas_banded.py:76",
-                     shape=f"P={P} all pairs, S={S}, k={k}", ms=ms, plain_ms=p_ms,
+                     shape=f"P={P} all pairs, S={S}, k={k}, {body} body", ms=ms, device_ms=d_ms,
+                     block_body_ms=old_ms, block_body_device_ms=old_d_ms, plain_ms=p_ms,
                      bound_ms=b_ms, bound_by=by, int_ops=ops))
 
     NB = myers_layout(k)[1]

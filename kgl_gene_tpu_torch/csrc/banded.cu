@@ -36,37 +36,41 @@
 // sum-over-pairs M * (2k+1) bytes of codes, which is the larger term only
 // when the rows are short.
 //
-// B4's design, k <= 255 (banded_choices_warp_kernel): one warp per pair and
-// the warp is the thread block, so the row loop holds no barrier and a pair
-// that ends early stalls nobody; 256 pairs are 256 warps on as many
-// schedulers. Lane t holds C = 2, 4, 8 or 16 consecutive band cells (C *
-// 32 >= 2k+1) with their prev, match run and the b codes they compare
-// against in registers; the b window slides one code a row, loaded a row
-// ahead, a[i-1] is one broadcast load a row ahead. A row is: the `up`
-// candidate from the lane's own next cell and one __shfl_down_sync for the
-// last; the insertion chain as a serial prefix-min inside the lane, an
-// exclusive warp scan of the lanes' last values in three rounds of
-// independent shuffles (4, 16, 32 lanes), and one add-min a cell to
-// combine. A lone warp issues in order, so the time is what its
+// The warp body, k <= 255 (banded_warp_kernel<C, CODES>: B4 with CODES, B5
+// without): one warp per pair, so the row loop holds no barrier and a pair
+// that ends early stalls nobody. The warp is the thread block; 256 pairs
+// are 256 warps on as many schedulers. Lane t holds C = 2, 4, 8 or 16
+// consecutive band cells (C * 32 >= 2k+1) with their prev, match run and
+// the b codes they compare against in registers; the b window slides one
+// code a row, loaded a row ahead, a[i-1] is one broadcast load a row ahead.
+// A row is: the `up` candidate from the lane's own next cell and one
+// __shfl_down_sync for the last; the insertion chain as a serial prefix-min
+// inside the lane, an exclusive warp scan of the lanes' last values in
+// three rounds of independent shuffles (4, 16, 32 lanes), and one add-min a
+// cell to combine. A lone warp issues in order, so the time is what its
 // instructions and the scan's latency add up to: everything is
 // straight-line selects, and the codes of row i - 1 are made after row i's
 // scan has been issued, to fill its latency. Lanes whose cells all lie
 // inside the matrix skip the edge tests (j < 0, j = 0, j > lb); only the
 // lanes on an edge take the masked path. Each row's codes go to a staging
-// buffer in shared memory byte by byte at their place in the pair's
-// stream, and every 16 rows the warp writes the stream's whole 16-byte
-// units out, coalesced, keeping the few bytes left for the next turn; rows
-// la .. M - 1 are zero fill at the end.
+// buffer in shared memory byte by byte at their place in the pair's stream,
+// and every 16 rows the warp writes the stream's whole 16-byte units out,
+// coalesced, keeping the few bytes left for the next turn; rows la .. M - 1
+// are zero fill at the end. B5 is the same row loop with the codes compiled
+// out: no candidates kept, no run, no stage. After row la the lane that
+// holds cell lb - la + k writes it. Blocks of 2 or 4 warps, a pair each,
+// timed the same as one on the H100 (PERF.md): the body is bound by the
+// instructions it issues, not by the cap of 32 blocks an SM.
 //
-// B5, and B4 at k > 255 (banded_kernel): one thread block per pair, one
-// thread per band cell (2k+1 <= 1023 threads for k <= 511), so each row is
-// one step of the whole block. Each thread keeps its prev[c] and match run
-// in registers; prev[c+1] is read through shared memory. The insertion
-// chain is an inclusive prefix-min of base[c] - c across the block: a warp
-// scan with __shfl_up_sync, the warp totals through shared memory, a scan
-// of those by warp 0, then + c. Three block barriers per row make this
-// body latency-bound: B5's redesign is later work, and at k > 255 a lane of
-// the warp body would hold 32 cells with three values each.
+// Both at 255 < k <= 511 (banded_kernel): one thread block per pair, one
+// thread per band cell (2k+1 <= 1023 threads), so each row is one step of
+// the whole block. Each thread keeps its prev[c] and match run in
+// registers; prev[c+1] is read through shared memory. The insertion chain
+// is an inclusive prefix-min of base[c] - c across the block: a warp scan
+// with __shfl_up_sync, the warp totals through shared memory, a scan of
+// those by warp 0, then + c. Three block barriers per row make this body
+// latency-bound; at k > 255 a lane of the warp body would hold 32 cells
+// with three values each.
 //
 // Both replace the TPU's log-step lane rolls (_prefix_min_chain) and its
 // sequential grid axis over 128-row groups; the 128-lane band padding, the
@@ -173,22 +177,25 @@ constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int SCAN_BIG = 1 << 30;  // above every value the scan carries
 
-// What a row leaves for its codes, written a row later.
-template <int C>
+// What a row leaves for its codes, written a row later; B5 keeps nothing.
+template <int C, bool CODES>
 struct RowCandidates {
   int up[C], diag[C], ne[C];
 };
+template <int C>
+struct RowCandidates<C, false> {};
 
 // One row's cells of one lane, before the warp scan: candidates, base and
 // the serial prefix-min inside the lane. EDGE lanes test each cell against
-// the matrix's edges and leave up = diag = -1 in a cell that is not valid,
-// which row_codes turns into code 0; the others hold only cells with 1 <=
-// j <= lb. Both are straight-line code (selects, no branch), so that the
-// cells' independent chains interleave in the one warp a scheduler has.
-template <int C, bool EDGE>
+// the matrix's edges and, with CODES, leave up = diag = -1 in a cell that
+// is not valid, which row_codes turns into code 0; the others hold only
+// cells with 1 <= j <= lb. Both are straight-line code (selects, no
+// branch), so that the cells' independent chains interleave in the one
+// warp a scheduler has.
+template <int C, bool EDGE, bool CODES>
 __device__ __forceinline__ void row_candidates(
     const int (&prev)[C], const int (&bw)[C], int nb, int ai, int i, int jbase,
-    int j_hi, RowCandidates<C>& rc, int (&loc)[C]) {
+    int j_hi, RowCandidates<C, CODES>& rc, int (&loc)[C]) {
   int m = 0;
 #pragma unroll
   for (int x = 0; x < C; ++x) {
@@ -205,9 +212,11 @@ __device__ __forceinline__ void row_candidates(
     }
     m = x == 0 ? base : min(m + 1, base);
     loc[x] = m;
-    rc.up[x] = EDGE ? (valid ? up : -1) : up;
-    rc.diag[x] = EDGE ? (valid ? diag : -1) : diag;
-    rc.ne[x] = ne;
+    if constexpr (CODES) {
+      rc.up[x] = EDGE ? (valid ? up : -1) : up;
+      rc.diag[x] = EDGE ? (valid ? diag : -1) : diag;
+      rc.ne[x] = ne;
+    }
   }
 }
 
@@ -235,7 +244,7 @@ __device__ __forceinline__ int warp_exclusive_min(int g, const int (&keep)[7]) {
 // valid has up = diag = -1 and gets code 0.
 template <int C>
 __device__ __forceinline__ void row_codes(const int (&cur)[C], int (&run)[C],
-                                          const RowCandidates<C>& rc,
+                                          const RowCandidates<C, true>& rc,
                                           uint8_t* __restrict__ srow, int n_real) {
 #pragma unroll
   for (int x = 0; x < C; ++x) {
@@ -247,15 +256,15 @@ __device__ __forceinline__ void row_codes(const int (&cur)[C], int (&run)[C],
   }
 }
 
-template <int C>
+// B4 with CODES, B5 without: a block is one warp and one pair.
+template <int C, bool CODES>
 __global__ void __launch_bounds__(32)
-banded_choices_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride,
-                           int Wa, const int32_t* __restrict__ b,
-                           int64_t b_stride, int Wb,
-                           const int32_t* __restrict__ la_arr,
-                           const int32_t* __restrict__ lb_arr,
-                           uint8_t* __restrict__ codes, int64_t pair_pitch,
-                           int k) {
+banded_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
+                   const int32_t* __restrict__ b, int64_t b_stride, int Wb,
+                   const int32_t* __restrict__ la_arr,
+                   const int32_t* __restrict__ lb_arr,
+                   uint8_t* __restrict__ codes, int64_t pair_pitch,
+                   int32_t* __restrict__ out, int k) {
   extern __shared__ uint4 stage4[];  // STAGE_ROWS * W + 16 bytes, rounded up
   uint8_t* stage = (uint8_t*)stage4;
   const int p = blockIdx.x;
@@ -264,9 +273,12 @@ banded_choices_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride,
   const int c0 = lane * C;
   const int la = min(max(la_arr[p], 0), Wa);
   const int lb = min(max(lb_arr[p], 0), Wb);
+  if (!CODES && (la == 0 || abs(la - lb) > k)) {  // uniform across the warp
+    if (lane == 0) out[p] = la == 0 ? lb : max(la, lb);
+    return;
+  }
   const int32_t* ap = a + p * a_stride;
   const int32_t* bp = b + p * b_stride;
-  uint4* dst = (uint4*)(codes + (size_t)p * pair_pitch);  // 16-byte aligned
   const int b_last = Wb - 1;
   // b[idx], the index clamped into the row: a clamped read is of a cell
   // that is not valid and never used. An empty b is never read.
@@ -291,18 +303,18 @@ banded_choices_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride,
   for (int x = 0; x < C; ++x) {
     const int j = c0 + x - k;  // row 0
     prev[x] = (c0 + x < W && j >= 0 && j <= lb) ? j : BIG;
-    run[x] = 0;
+    if constexpr (CODES) run[x] = 0;
     bw[x] = ldb(c0 + x - k);  // row 1 compares a[0] with b[j - 1], j = 1 - k + c
   }
   int b_next = ldb(c0 + C - k);
   int a_next = la > 0 ? __ldg(ap) : 0;
   int org = 0;  // stream offset of stage[0]; dst + org is 16-byte aligned
 
-  // Row i: its candidates and the scan; while the scan's shuffles are in
-  // flight, the codes of row i - 1 (from `done`, which that row left) go to
-  // the stage; then row i's values replace prev. Rows alternate between two
-  // RowCandidates so that nothing is copied.
-  auto row = [&](int i, RowCandidates<C>& mine, const RowCandidates<C>& done) {
+  // Row i: its candidates and the scan; with CODES, while the scan's
+  // shuffles are in flight, the codes of row i - 1 (from `done`, which that
+  // row left) go to the stage; then row i's values replace prev. Rows
+  // alternate between two RowCandidates so that nothing is copied.
+  auto row = [&](int i, RowCandidates<C, CODES>& mine, const RowCandidates<C, CODES>& done) {
     const int ai = a_next;
     a_next = i < la ? __ldg(ap + i) : 0;
     int nb = __shfl_down_sync(FULL, prev[0], 1);
@@ -312,18 +324,24 @@ banded_choices_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride,
     const bool edge = always_edge || jbase < 1 || jbase + n_real - 1 > lb;
     int loc[C];
     if (edge)
-      row_candidates<C, true>(prev, bw, nb, ai, i, jbase, j_hi, mine, loc);
+      row_candidates<C, true, CODES>(prev, bw, nb, ai, i, jbase, j_hi, mine, loc);
     else
-      row_candidates<C, false>(prev, bw, nb, ai, i, jbase, j_hi, mine, loc);
+      row_candidates<C, false, CODES>(prev, bw, nb, ai, i, jbase, j_hi, mine, loc);
     // What the insertion chain carries into my first cell from every lane
     // before me: the exclusive prefix-min of (last value - C * lane).
     const int carry0 =
         warp_exclusive_min(loc[C - 1] - C * lane, keep) + C * lane - C + 1;
-    if (i > 1) row_codes<C>(prev, run, done, stage + ((i - 2) * W - org) + c0, n_real);
+    if constexpr (CODES) {
+      if (i > 1) row_codes<C>(prev, run, done, stage + ((i - 2) * W - org) + c0, n_real);
+    }
 #pragma unroll
     for (int x = 0; x < C; ++x) {
       int cur = min(carry0 + x, loc[x]);
-      if (mine.diag[x] < 0) cur = BIG;                      // not valid (EDGE lanes only)
+      if constexpr (CODES) {
+        if (mine.diag[x] < 0) cur = BIG;                    // not valid (EDGE lanes only)
+      } else {
+        if (edge && (unsigned)(jbase + x) > (unsigned)j_hi) cur = BIG;  // not valid
+      }
       if (x == C - 1) cur = last_is_pad ? BIG : cur;        // the cell past the band
       prev[x] = cur;
     }
@@ -332,51 +350,72 @@ banded_choices_warp_kernel(const int32_t* __restrict__ a, int64_t a_stride,
     bw[C - 1] = b_next;
     b_next = ldb(i - k + c0 + C);  // row i + 2's last cell
   };
-  // Write out the whole 16-byte units of the `rows` rows staged so far; the
-  // bytes left over move to the front of the stage.
-  auto flush = [&](int rows) {
-    __syncwarp();
-    const int filled = rows * W - org;
-    const int units = filled >> 4;
-    for (int t = lane; t < units; t += 32) dst[(org >> 4) + t] = stage4[t];
-    const int rem = filled & 15;
-    const uint8_t left = lane < rem ? stage[units * 16 + lane] : 0;
-    __syncwarp();
-    if (lane < 16) stage[lane] = left;  // zero behind the bytes kept
-    __syncwarp();
-    org += units * 16;
-  };
 
-  RowCandidates<C> even, odd;
-  for (int i = 1; i <= la; i += 2) {
-    row(i, odd, even);
-    if (((i - 1) & (STAGE_ROWS - 1)) == 0 && i > 1) flush(i - 1);
-    if (i + 1 <= la) row(i + 1, even, odd);
+  if constexpr (!CODES) {
+    RowCandidates<C, false> none;
+    for (int i = 1; i <= la; ++i) row(i, none, none);
+    // D[la][lb] is cell lb - la + k of row la. Its lane picks it by an
+    // unrolled select: a runtime index would send prev to local memory.
+    const int cs = lb - la + k;
+    if (lane == cs / C) {
+      int v = prev[0];
+#pragma unroll
+      for (int x = 1; x < C; ++x) v = cs - c0 == x ? prev[x] : v;
+      out[p] = v;
+    }
+  } else {
+    uint4* dst = (uint4*)(codes + (size_t)p * pair_pitch);  // 16-byte aligned
+    // Write out the whole 16-byte units of the `rows` rows staged so far;
+    // the bytes left over move to the front of the stage.
+    auto flush = [&](int rows) {
+      __syncwarp();
+      const int filled = rows * W - org;
+      const int units = filled >> 4;
+      for (int t = lane; t < units; t += 32) dst[(org >> 4) + t] = stage4[t];
+      const int rem = filled & 15;
+      const uint8_t left = lane < rem ? stage[units * 16 + lane] : 0;
+      __syncwarp();
+      if (lane < 16) stage[lane] = left;  // zero behind the bytes kept
+      __syncwarp();
+      org += units * 16;
+    };
+
+    RowCandidates<C, true> even, odd;
+    for (int i = 1; i <= la; i += 2) {
+      row(i, odd, even);
+      if (((i - 1) & (STAGE_ROWS - 1)) == 0 && i > 1) flush(i - 1);
+      if (i + 1 <= la) row(i + 1, even, odd);
+    }
+    if (la > 0) {
+      row_codes<C>(prev, run, (la & 1) ? odd : even, stage + ((la - 1) * W - org) + c0, n_real);
+      flush(la);
+    }
+    // Rows la .. M - 1 are zero: the unit that holds the bytes kept, then
+    // zero units to the end of the pair's pitch.
+    if (la * W > org) {
+      if (lane == 0) dst[org >> 4] = stage4[0];
+      org += 16;
+    }
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int64_t t = (org >> 4) + lane; t < (pair_pitch >> 4); t += 32) dst[t] = zero;
   }
-  if (la > 0) {
-    row_codes<C>(prev, run, (la & 1) ? odd : even, stage + ((la - 1) * W - org) + c0, n_real);
-    flush(la);
-  }
-  // Rows la .. M - 1 are zero: the unit that holds the bytes kept, then
-  // zero units to the end of the pair's pitch.
-  if (la * W > org) {
-    if (lane == 0) dst[org >> 4] = stage4[0];
-    org += 16;
-  }
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int64_t t = (org >> 4) + lane; t < (pair_pitch >> 4); t += 32) dst[t] = zero;
 }
 
-template <int C>
-static int launch_choices_warp(const void* a, int64_t a_stride, int64_t Wa,
-                               const void* b, int64_t b_stride, int64_t Wb,
-                               const void* la, const void* lb, void* codes,
-                               int64_t pair_pitch, int64_t B, int k,
-                               cudaStream_t stream) {
-  const size_t smem = ((size_t)STAGE_ROWS * (2 * k + 1) + 16 + 15) / 16 * 16;
-  banded_choices_warp_kernel<C><<<(unsigned)B, 32, smem, stream>>>(
+// The warp body at band k, C the fewest cells a lane (2, 4, 8 or 16) with
+// C * 32 >= 2k + 1.
+template <bool CODES>
+static int launch_warp(const void* a, int64_t a_stride, int64_t Wa, const void* b,
+                       int64_t b_stride, int64_t Wb, const void* la, const void* lb,
+                       void* codes, int64_t pair_pitch, void* out, int64_t B, int k,
+                       size_t smem, cudaStream_t stream) {
+  const int cells = (2 * k + 1 + 31) / 32;
+  auto kernel = cells <= 2   ? &banded_warp_kernel<2, CODES>
+                : cells <= 4 ? &banded_warp_kernel<4, CODES>
+                : cells <= 8 ? &banded_warp_kernel<8, CODES>
+                             : &banded_warp_kernel<16, CODES>;
+  kernel<<<(unsigned)B, 32, smem, stream>>>(
       (const int32_t*)a, a_stride, (int)Wa, (const int32_t*)b, b_stride, (int)Wb,
-      (const int32_t*)la, (const int32_t*)lb, (uint8_t*)codes, pair_pitch, k);
+      (const int32_t*)la, (const int32_t*)lb, (uint8_t*)codes, pair_pitch, (int32_t*)out, k);
   return kgt_launch_status();
 }
 
@@ -387,15 +426,27 @@ int block_threads(int k) { return ((2 * k + 1 + 31) / 32) * 32; }
 
 }  // namespace
 
+// 1 when B5 takes the warp body at this band, 0 for the block body;
+// launches nothing.
+KGT_API int kgt_banded_body(int64_t band_k) {
+  return band_k <= WARP_BODY_MAX_BAND ? 1 : 0;
+}
+
 // a: (B, Wa) int32 rows a_stride apart; b: (B, Wb) int32 rows b_stride
-// apart; la, lb, out: (B,) int32. 0 <= band_k <= 511.
+// apart; la, lb, out: (B,) int32. 0 <= band_k <= 511. body: 1 warp, 0
+// block, -1 by the band (the warp body up to band 255).
 KGT_API int kgt_banded(const void* a, int64_t a_stride, int64_t Wa,
                        const void* b, int64_t b_stride, int64_t Wb,
                        const void* la, const void* lb, void* out, int64_t B,
-                       int64_t band_k, void* stream) {
+                       int64_t band_k, int64_t body, void* stream) {
   if (band_k < 0 || block_threads((int)band_k) > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (body == 1 && band_k > WARP_BODY_MAX_BAND) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  banded_kernel<false><<<(unsigned)B, block_threads((int)band_k), 0, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  if (body < 0 ? kgt_banded_body(band_k) : body == 1)
+    return launch_warp<false>(a, a_stride, Wa, b, b_stride, Wb, la, lb, nullptr, 0, out, B,
+                              (int)band_k, 0, s);
+  banded_kernel<false><<<(unsigned)B, block_threads((int)band_k), 0, s>>>(
       (const int32_t*)a, a_stride, (int)Wa, (const int32_t*)b, b_stride, (int)Wb,
       (const int32_t*)la, (const int32_t*)lb, (int32_t*)out, nullptr, 0, (int)B, 0,
       (int)band_k);
@@ -426,14 +477,9 @@ KGT_API int kgt_banded_choices(const void* a, int64_t a_stride, int64_t Wa,
   cudaStream_t s = (cudaStream_t)stream;
   const int k = (int)band_k;
   if (body < 0 ? kgt_banded_choices_body(band_k) : body == 1) {
-    const int cells = (2 * k + 1 + 31) / 32;
-    if (cells <= 2)
-      return launch_choices_warp<2>(a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, k, s);
-    if (cells <= 4)
-      return launch_choices_warp<4>(a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, k, s);
-    if (cells <= 8)
-      return launch_choices_warp<8>(a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, k, s);
-    return launch_choices_warp<16>(a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, k, s);
+    const size_t smem = ((size_t)STAGE_ROWS * (2 * k + 1) + 16 + 15) / 16 * 16;
+    return launch_warp<true>(a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch,
+                             nullptr, B, k, smem, s);
   }
   banded_kernel<true><<<(unsigned)B, block_threads(k), 0, s>>>(
       (const int32_t*)a, a_stride, (int)Wa, (const int32_t*)b, b_stride, (int)Wb,

@@ -60,8 +60,9 @@ _SIGNATURES = {
     "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
     # as kgt_myers, with body (1 group, 0 thread, -1 by the rule) before stream
     "kgt_myers_with_body": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
-    # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, band_k, stream
-    "kgt_banded": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
+    # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, band_k, body (1 warp,
+    # 0 block, -1 by the band), stream
+    "kgt_banded": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     # a, a_stride, Wa, b, b_stride, Wb, la, lb, codes, pair_pitch, B, M, band_k,
     # body (1 warp, 0 block, -1 by the band), stream
     "kgt_banded_choices": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -73,6 +74,7 @@ _SIGNATURES = {
     # B, Wa, Wt, band_k -> 1 (group body) or 0 (thread); no launch
     "kgt_myers_body": (_I, _I, _I, _I),
     # band_k -> 1 (warp body) or 0 (block); no launch
+    "kgt_banded_body": (_I,),
     "kgt_banded_choices_body": (_I,),
 }
 

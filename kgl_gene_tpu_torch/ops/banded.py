@@ -8,17 +8,19 @@ band layout and the same arithmetic, so each pair agrees bit for bit. On a
 CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
 
-B4 has two bodies, chosen by its launcher from the band alone
-(banded_choices_kernel_body says which). Up to band 255 a warp holds a
-pair, each lane 2 to 16 consecutive band cells in registers: the insertion
-chain is a serial prefix-min inside the lane, a three-round warp scan of
-the lanes' last values and a combine, with no block barrier in the row
-loop; a row's codes are made while the next row's scan is in flight and
-leave through a shared-memory stage in 16-byte stores. Wider bands,
-and B5, keep one thread per band cell and a block per pair. On the card
-the codes lie pair by pair (a pair's rows contiguous, the pair pitch a
-multiple of 16 bytes) and banded_choices returns the (M, B, 2k+1) view of
-that buffer, which ops/traceback.tb_walk reads by its strides.
+B4 and B5 each have two bodies, chosen by their launchers from the band
+alone (banded_choices_kernel_body and banded_kernel_body say which). Up to
+band 255 a warp holds a pair, each lane 2 to 16 consecutive band cells in
+registers: the insertion chain is a serial prefix-min inside the lane, a
+three-round warp scan of the lanes' last values and a combine, with no
+block barrier in the row loop. It is one kernel for both: B4's codes of a
+row are made while the next row's scan is in flight and leave through a
+shared-memory stage in 16-byte stores; B5 compiles the codes out and
+keeps only the last row's cell lb - la + k. Bands 256 to 511 keep one
+thread per band cell and a block per pair. On the card B4's codes lie pair by pair (a pair's rows
+contiguous, the pair pitch a multiple of 16 bytes) and banded_choices
+returns the (M, B, 2k+1) view of that buffer, which ops/traceback.tb_walk
+reads by its strides.
 
 Band layout: cell c = j - i + k of row i holds D[i][j], over exactly 2k+1
 cells. The TPU's 128-lane padding, its `lead` sentinel pad of b
@@ -52,6 +54,7 @@ __all__ = [
     "banded_choices_kernel_body",
     "banded_choices_plain",
     "banded_distance",
+    "banded_kernel_body",
     "banded_levenshtein",
     "banded_pairs_device",
     "banded_plain",
@@ -156,9 +159,22 @@ def _check_pairs(a, la, b, lb) -> int:
     return B
 
 
-def banded_distance(a, la, b, lb, *, band_k: int) -> torch.Tensor:
+BODIES = ("block", "warp")
+
+
+def banded_kernel_body(band_k: int) -> str:
+    """Which body of kernel B5 a launch at band_k takes: 'warp' (a pair a
+    warp, a lane several cells) or 'block' (a pair a block, a thread a
+    cell). Asks the launcher's own rule; launches nothing."""
+    _check_band(band_k)
+    return BODIES[kernels.library().kgt_banded_body(band_k)]
+
+
+def banded_distance(a, la, b, lb, *, band_k: int, _body: str | None = None) -> torch.Tensor:
     """Banded distances, (B,) int32: a (B, Wa) and b (B, Wb) int32 codes,
-    la, lb (B,) int32. On the card this launches kernel B5."""
+    la, lb (B,) int32. On the card this launches kernel B5. _body names the
+    kernel's body ('warp' or 'block') for measurements that hold one beside
+    the other; callers leave it to the launcher's rule."""
     _check_band(band_k)
     if a.device.type == "cpu":
         return banded_plain(a, la, b, lb, band_k)
@@ -168,11 +184,9 @@ def banded_distance(a, la, b, lb, *, band_k: int) -> torch.Tensor:
         "banded", "kgt_banded", a.device,
         a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
         la.data_ptr(), lb.data_ptr(), out.data_ptr(), B, band_k,
+        -1 if _body is None else BODIES.index(_body),
     )
     return out
-
-
-CHOICES_BODIES = ("block", "warp")
 
 
 def banded_choices_kernel_body(band_k: int) -> str:
@@ -180,7 +194,7 @@ def banded_choices_kernel_body(band_k: int) -> str:
     warp, a lane several cells) or 'block' (a pair a block, a thread a
     cell). Asks the launcher's own rule; launches nothing."""
     _check_band(band_k)
-    return CHOICES_BODIES[kernels.library().kgt_banded_choices_body(band_k)]
+    return BODIES[kernels.library().kgt_banded_choices_body(band_k)]
 
 
 def banded_choices(a, la, b, lb, *, band_k: int, _body: str | None = None) -> torch.Tensor:
@@ -202,7 +216,7 @@ def banded_choices(a, la, b, lb, *, band_k: int, _body: str | None = None) -> to
         "banded_choices", "kgt_banded_choices", a.device,
         a.data_ptr(), a.stride(0), a.shape[1], b.data_ptr(), b.stride(0), b.shape[1],
         la.data_ptr(), lb.data_ptr(), buf.data_ptr(), pitch, B, rows, band_k,
-        -1 if _body is None else CHOICES_BODIES.index(_body),
+        -1 if _body is None else BODIES.index(_body),
     )
     return buf.as_strided((rows, B, W), (W, pitch, 1))
 

@@ -1,13 +1,13 @@
-"""The two bodies of kernels B1 and B4 side by side, and the walk kernel.
+"""The two bodies of kernels B1, B4 and B5 side by side, and the walk kernel.
 
-    python3 scripts/torch_kernel_bodies.py [--quick]
+    python3 scripts/torch_kernel_bodies.py [--quick] [--sass]
 
 Builds the kernels and prints the compiler's register and spill report.
 Then, on the card:
 
   1. holds each body of B1 (group: a pair over NB lanes of a warp; thread:
-     a pair a thread) and of B4 (warp: a pair a warp; block: a pair a
-     block), and the walk kernel, against the plain PyTorch versions at
+     a pair a thread), of B4 and of B5 (warp: a pair a warp; block: a pair
+     a block), and the walk kernel, against the plain PyTorch versions at
      S = 3,000 (exact);
   2. times both bodies of B1 over a grid of pair counts for every band,
      with one shared text and with per-pair texts, on the device alone (a
@@ -15,11 +15,12 @@ Then, on the card:
      at each: the rule's thresholds (group_max_pairs in csrc/myers.cu)
      were set from this table;
   3. times both bodies of B4 at bands 31 to 255 and the walk kernel at
-     the transcript family's shape (256 pairs of 3,000 bases, band 127).
+     the transcript family's shape (256 pairs of 3,000 bases, band 127);
+  4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
+     bases at bands 31 to 255.
 
---quick stops after step 1. --sass writes the machine code of the new
-bodies, as cuobjdump prints it, to chiprun_out/sass_<kernel>.txt first.
-Needs a CUDA device.
+--quick stops after step 1. --sass writes the machine code of the new bodies, as cuobjdump prints it, to
+chiprun_out/sass_<kernel>.txt first. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ sys.path.insert(0, ROOT)
 from chip_smoke import S, banded_case, exact, nvidia_smi_line, time_device  # noqa: E402
 from kgl_gene_tpu_torch import kernels  # noqa: E402
 from kgl_gene_tpu_torch.ops.banded import (  # noqa: E402
-    banded_choices, banded_choices_kernel_body, banded_choices_plain,
+    banded_choices, banded_choices_kernel_body, banded_choices_plain, banded_distance,
+    banded_kernel_body, banded_plain,
 )
 from kgl_gene_tpu_torch.ops.myers import (  # noqa: E402
     MYERS_BANDS, myers_distance_padded, myers_kernel_body, myers_layout, myers_plain,
@@ -74,6 +76,15 @@ def check(dev):
         for body in ("warp", "block"):
             exact(f"B4 {body} body k={k} (B=16, S={S}, ragged)",
                   banded_choices(a16, la16, b16, lb16, band_k=k, _body=body), want)
+    # B5: B = 64, 63 and 1; ragged pairs with la = 0, lb = 0 and gaps
+    # beyond the band.
+    for k in (0, 15, 63, 127, 255, 511):
+        for n in (64, 63, 1):
+            args = (a[:n], la[:n], b[:n], lb[:n])
+            want = banded_plain(*args, k)
+            for body in ("warp", "block") if k <= 255 else ("block",):
+                exact(f"B5 {body} body k={k} (B={n}, S={S}, ragged)",
+                      banded_distance(*args, band_k=k, _body=body), want)
     codes = banded_choices(a, la, b, lb, band_k=127)
     got = tb_walk(codes, la, lb, band_k=127, max_steps=300)
     want = tb_walk_plain(codes, la, lb, band_k=127, max_steps=300)
@@ -119,6 +130,22 @@ def time_choices_and_walk(dev):
     print(f"walk device ms, B=256 k={k} {steps} steps: {ms:.6f}")
 
 
+def time_banded(dev):
+    rng = np.random.default_rng(10)
+    grid = (256, 4096, 32640)
+    a, la, _ref, lb = mutants(rng, max(grid), 48)
+    a_t, la_t, lb_t = (torch.as_tensor(x, device=dev) for x in (a, la, lb))
+    b_t = a_t.roll(1, 0).contiguous()
+    for k in (31, 63, 127, 255):
+        for B in grid:
+            args = (a_t[:B], la_t[:B], b_t[:B], lb_t[:B])
+            ms = {body: time_device(
+                [lambda body=body: banded_distance(*args, band_k=k, _body=body)],
+                3 if B > 4096 else 10, windows=3) for body in ("warp", "block")}
+            print(f"B5 device ms, B={B} S={S} k={k}: warp {ms['warp']:.6f} block "
+                  f"{ms['block']:.6f} | rule takes {banded_kernel_body(k)}", flush=True)
+
+
 def dump_sass():
     """The SASS of each new kernel body, one file a kernel."""
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -128,7 +155,8 @@ def dump_sass():
                           text=True, check=True).stdout
     for chunk in text.split("\t\tFunction : ")[1:]:
         name = chunk.split("\n", 1)[0]
-        for key in ("myers_group_kernelILi3E", "banded_choices_warp_kernelILi8E", "walk_kernel"):
+        for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
+                    "banded_warp_kernelILi8ELb0E", "walk_kernel"):
             if key in name:
                 with open(os.path.join(out_dir, f"sass_{key}.txt"), "w") as f:
                     f.write(chunk)
@@ -151,6 +179,7 @@ def main() -> int:
     if "--quick" not in sys.argv:
         time_myers(dev)
         time_choices_and_walk(dev)
+        time_banded(dev)
     return 0
 
 

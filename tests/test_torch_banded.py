@@ -201,15 +201,17 @@ def test_band_limits_and_cuda_only_checks():
     assert banded_choices(a, n, a, n, band_k=MAX_BAND).shape == (4, 1, 2 * MAX_BAND + 1)
 
 
-# --- The warp body of kernel B4 (csrc/banded.cu), lane by lane -------------
+# --- The warp body of kernels B4 and B5 (csrc/banded.cu), lane by lane ----
 #
-# A Python mirror of banded_choices_warp_kernel: 32 lanes of C consecutive
-# band cells each, the neighbour's first cell for `up`, the serial
-# prefix-min inside a lane, the warp scan of the lanes' last values and the
-# combine, the fast path of lanes away from the matrix's edges with its
-# one pad cell, and the staging of a pair's code stream into 16-byte units
-# at a padded pair pitch. Held against banded_choices_plain, which
-# test_torch_traceback.py holds against the JAX package through the tapes.
+# A Python mirror of banded_warp_kernel: 32 lanes of C consecutive band
+# cells each, the neighbour's first cell for `up`, the serial prefix-min
+# inside a lane, the warp scan of the lanes' last values and the combine,
+# the fast path of lanes away from the matrix's edges with its one pad
+# cell. With codes (B4) it stages a pair's code stream into 16-byte units
+# at a padded pair pitch, and is held against banded_choices_plain, which
+# test_torch_traceback.py holds against the JAX package through the tapes;
+# without (B5) it reads D[la][lb] from the last row, and is held against
+# banded_plain, which the tests above hold against the JAX kernel.
 
 _BIG = 1 << 29
 
@@ -224,78 +226,104 @@ def _masked_min(vals, offsets, own):
             for t in range(32)]
 
 
+def _lane_cells(k):
+    """C, the fewest cells a lane (2, 4, 8 or 16) that cover 2k+1."""
+    cells = -(-(2 * k + 1) // 32)
+    return next(c for c in (2, 4, 8, 16) if cells <= c)
+
+
+def _warp_rows(a_row, la, b_row, lb, k):
+    """The warp body's row loop over one pair (la, lb already clamped):
+    yields, for rows i = 1..la, i and per lane the C cells' (cur, up, diag,
+    ne, valid)."""
+    W = 2 * k + 1
+    C = _lane_cells(k)
+    Wb = len(b_row)
+    ldb = lambda idx: int(b_row[min(max(idx, 0), Wb - 1)]) if Wb > 0 else 0
+    n_real = [min(max(W - t * C, 0), C) for t in range(32)]
+    prev = [[(t * C + x - k) if (t * C + x < W and 0 <= t * C + x - k <= lb) else _BIG
+             for x in range(C)] for t in range(32)]
+    bw = [[ldb(t * C + x - k) for x in range(C)] for t in range(32)]
+    b_next = [ldb(t * C + C - k) for t in range(32)]
+    for i in range(1, la + 1):
+        ai = int(a_row[i - 1])
+        nb = [prev[t + 1][0] if t < 31 else _BIG for t in range(32)]
+        j_hi = min(lb, i + k)
+        lane_rows, g = [], []
+        for t in range(32):
+            jbase = i - k + t * C
+            edge = n_real[t] < C - 1 or jbase < 1 or jbase + n_real[t] - 1 > lb
+            up, diag, loc, ne = [], [], [], []
+            m = 0
+            for x in range(C):
+                jx = jbase + x
+                valid = (not edge) or 0 <= jx <= j_hi
+                up.append((prev[t][x + 1] if x < C - 1 else nb[t]) + 1)
+                ne.append(True if edge and not (valid and jx >= 1) else ai != bw[t][x])
+                diag.append(prev[t][x] + int(ne[x]))
+                base = min(up[x], diag[x])
+                if edge:
+                    if jx == 0:
+                        base = i
+                    if not valid:
+                        base = _BIG
+                m = base if x == 0 else min(m + 1, base)
+                loc.append(m)
+            lane_rows.append((edge, jbase, up, diag, loc, ne))
+            g.append(loc[C - 1] - C * t)
+        # Exclusive prefix-min in three rounds: the 4 lanes before, 16, all.
+        g = _masked_min(g, (1, 2, 3, 4), own=False)
+        g = _masked_min(g, (4, 8, 12), own=True)
+        g = _masked_min(g, (16,), own=True)
+        cells = []
+        for t in range(32):
+            edge, jbase, up, diag, loc, ne = lane_rows[t]
+            carry0 = g[t] + C * t - C + 1
+            lane = []
+            for x in range(C):
+                valid = (not edge) or 0 <= jbase + x <= j_hi
+                cur = min(carry0 + x, loc[x])
+                if edge and not valid:
+                    cur = _BIG
+                if x == C - 1 and n_real[t] == C - 1:
+                    cur = _BIG
+                lane.append((cur, up[x], diag[x], ne[x], valid))
+                prev[t][x] = cur
+            cells.append(lane)
+            bw[t] = bw[t][1:] + [b_next[t]]
+            b_next[t] = ldb(i - k + t * C + C)
+        yield i, cells
+
+
+def _clamp(n, width):
+    return min(max(int(n), 0), width)
+
+
 def banded_choices_warp_mirror(a, la_arr, b, lb_arr, k, M):
     B, Wa = a.shape
     Wb = b.shape[1]
     W = 2 * k + 1
-    cells = -(-W // 32)
-    C = next(c for c in (2, 4, 8, 16) if cells <= c)
+    C = _lane_cells(k)
     pitch = -(-M * W // 16) * 16
     buf = np.full((B, pitch), 0xEE, np.uint8)  # every byte must be written
     stage_rows = 16
+    n_real = [min(max(W - t * C, 0), C) for t in range(32)]
     for p in range(B):
-        la = min(max(int(la_arr[p]), 0), Wa)
-        lb = min(max(int(lb_arr[p]), 0), Wb)
-        ldb = lambda idx: int(b[p, min(max(idx, 0), Wb - 1)]) if Wb > 0 else 0
-        n_real = [min(max(W - t * C, 0), C) for t in range(32)]
-        prev = [[(t * C + x - k) if (t * C + x < W and 0 <= t * C + x - k <= lb) else _BIG
-                 for x in range(C)] for t in range(32)]
+        la, lb = _clamp(la_arr[p], Wa), _clamp(lb_arr[p], Wb)
         run = [[0] * C for _ in range(32)]
-        bw = [[ldb(t * C + x - k) for x in range(C)] for t in range(32)]
-        b_next = [ldb(t * C + C - k) for t in range(32)]
         stage = np.zeros(stage_rows * W + 32, np.uint8)
         org = 0
-        for i in range(1, la + 1):
-            ai = int(a[p, i - 1])
-            nb = [prev[t + 1][0] if t < 31 else _BIG for t in range(32)]
-            j_hi = min(lb, i + k)
-            lane_rows, g = [], []
+        for i, cells in _warp_rows(a[p], la, b[p], lb, k):
             for t in range(32):
-                jbase = i - k + t * C
-                edge = n_real[t] < C - 1 or jbase < 1 or jbase + n_real[t] - 1 > lb
-                up, diag, loc, ne = [], [], [], []
-                m = 0
-                for x in range(C):
-                    jx = jbase + x
-                    valid = (not edge) or 0 <= jx <= j_hi
-                    up.append((prev[t][x + 1] if x < C - 1 else nb[t]) + 1)
-                    ne.append(True if edge and not (valid and jx >= 1) else ai != bw[t][x])
-                    diag.append(prev[t][x] + int(ne[x]))
-                    base = min(up[x], diag[x])
-                    if edge:
-                        if jx == 0:
-                            base = i
-                        if not valid:
-                            base = _BIG
-                    m = base if x == 0 else min(m + 1, base)
-                    loc.append(m)
-                lane_rows.append((edge, jbase, up, diag, loc, ne))
-                g.append(loc[C - 1] - C * t)
-            # Exclusive prefix-min in three rounds: the 4 lanes before, 16, all.
-            g = _masked_min(g, (1, 2, 3, 4), own=False)
-            g = _masked_min(g, (4, 8, 12), own=True)
-            g = _masked_min(g, (16,), own=True)
-            for t in range(32):
-                edge, jbase, up, diag, loc, ne = lane_rows[t]
-                carry0 = g[t] + C * t - C + 1
-                for x in range(C):
-                    valid = (not edge) or 0 <= jbase + x <= j_hi
-                    cur = min(carry0 + x, loc[x])
-                    if edge and not valid:
-                        cur = _BIG
-                    if not edge and x == C - 1 and n_real[t] == C - 1:
-                        cur = _BIG
-                    is_diag = cur == diag[x]
-                    is_match = is_diag and not ne[x]
+                for x, (cur, up, diag, ne, valid) in enumerate(cells[t]):
+                    is_diag = cur == diag
+                    is_match = is_diag and not ne
                     run[t][x] = min(run[t][x], 252) + 1 if valid and is_match else 0
-                    cd = run[t][x] + 2 if is_match else 2 if is_diag else int(cur == up[x])
-                    if edge and not valid:
+                    cd = run[t][x] + 2 if is_match else 2 if is_diag else int(cur == up)
+                    if not valid:
                         cd = 0
-                    prev[t][x] = cur
                     if x < n_real[t]:
                         stage[(i - 1) * W - org + t * C + x] = cd
-                bw[t] = bw[t][1:] + [b_next[t]]
-                b_next[t] = ldb(i - k + t * C + C)
             if i % stage_rows == 0 or i == la:
                 filled = i * W - org
                 units, rem = filled >> 4, filled & 15
@@ -309,6 +337,27 @@ def banded_choices_warp_mirror(a, la_arr, b, lb_arr, k, M):
             org += 16
         buf[p, org:] = 0
     return np.lib.stride_tricks.as_strided(buf, (M, B, W), (W, pitch, 1))
+
+
+def banded_warp_mirror(a, la_arr, b, lb_arr, k):
+    """B5's warp body: (B,) distances, la = 0 and gaps beyond k answered
+    before the row loop, D[la][lb] read from the lane that holds cell
+    lb - la + k."""
+    B, Wa = a.shape
+    Wb = b.shape[1]
+    C = _lane_cells(k)
+    out = np.full(B, -1, np.int64)  # every pair must be written
+    for p in range(B):
+        la, lb = _clamp(la_arr[p], Wa), _clamp(lb_arr[p], Wb)
+        if la == 0 or abs(la - lb) > k:
+            out[p] = lb if la == 0 else max(la, lb)
+            continue
+        for _i, cells in _warp_rows(a[p], la, b[p], lb, k):
+            pass
+        cs = lb - la + k
+        out[p] = cells[cs // C][cs % C][0]
+    assert (out >= 0).all()
+    return out.astype(np.int32)
 
 
 def _choices_case(rng, B, S, edits):
@@ -367,3 +416,53 @@ def test_choices_warp_body_mirror_saturated_runs_and_empty_b():
     want = banded_choices(*(torch.as_tensor(x) for x in (s[:, :40], n // 15, e, z)), band_k=31)
     np.testing.assert_array_equal(
         banded_choices_warp_mirror(s[:, :40], n // 15, e, z, 31, 40), want.numpy())
+
+
+@pytest.mark.parametrize("k,S,B,edits", [
+    (31, 150, 6, 10), (63, 200, 5, 40), (127, 300, 4, 60), (255, 330, 3, 100),
+    (7, 90, 6, 4), (15, 70, 5, 6), (0, 20, 3, 0), (40, 130, 1, 12),
+])
+def test_distance_warp_body_mirror_equals_plain(k, S, B, edits):
+    rng = np.random.default_rng(k + S)
+    a, la, b, lb = _choices_case(rng, B, S, edits)
+    want = banded_distance(*(torch.as_tensor(x) for x in (a, la, b, lb)), band_k=k).numpy()
+    np.testing.assert_array_equal(banded_warp_mirror(a, la, b, lb, k), want)
+
+
+def _edge_pairs(case):
+    """(a, la, b, lb, k) for B5's edge cases: la = 0, lb = 0, gaps of k + 1
+    on both sides beside one of k, k = 0 and the warp body's widest band."""
+    rng = np.random.default_rng(17)
+    s = rng.integers(0, 4, (4, 300)).astype(np.int32)
+    t = s.copy()
+    t[:, ::23] = (t[:, ::23] + 1) % 4
+    n = np.full(4, 300, np.int32)
+    if case == "la=0":
+        return s, np.array([0, 0, 0, 5], np.int32), t, np.array([0, 7, 300, 5], np.int32), 15
+    if case == "lb=0":
+        return s, np.array([1, 15, 16, 300], np.int32), t, np.zeros(4, np.int32), 15
+    if case == "gap>k":
+        return s, np.array([300, 100, 200, 132], np.int32), t, np.array([268, 132, 231, 100], np.int32), 31
+    if case == "k=0":
+        return s, np.array([300, 299, 40, 1], np.int32), np.where(np.arange(300) < 200, s, t), \
+            np.array([300, 299, 41, 1], np.int32), 0
+    return s, n, rng.integers(0, 4, (4, 300)).astype(np.int32), n - np.array([0, 255, 256, 100], np.int32), 255
+
+
+@pytest.mark.parametrize("case", ["la=0", "lb=0", "gap>k", "k=0", "k=255"])
+def test_distance_warp_body_mirror_edges(case):
+    a, la, b, lb, k = _edge_pairs(case)
+    want = banded_distance(*(torch.as_tensor(x) for x in (a, la, b, lb)), band_k=k).numpy()
+    np.testing.assert_array_equal(banded_warp_mirror(a, la, b, lb, k), want)
+
+
+@pytest.mark.parametrize("k", [0, 31, 255])
+def test_distance_warp_body_mirror_ragged_batch(k):
+    """B = 5 pairs of one launch with lengths on both sides of each other,
+    within the band and beyond it: each pair's result is its own."""
+    rng = np.random.default_rng(5 + k)
+    a, _la, b, _lb = _choices_case(rng, 5, 80, 8)
+    la = np.array([80, 41, 0, 77, 80], np.int32)
+    lb = np.array([79, 41 + k, 80, 80 - 2 * k - 1, 12], np.int32).clip(0, 80)
+    want = banded_distance(*(torch.as_tensor(x) for x in (a, la, b, lb)), band_k=k).numpy()
+    np.testing.assert_array_equal(banded_warp_mirror(a, la, b, lb, k), want)
