@@ -5,8 +5,8 @@
 
 Builds the kernels under kgl_gene_tpu_torch/csrc, holds each one against
 its plain PyTorch version on the card (exact integer equality), and drives
-two paths, each with the launch counts set to 0 just before and read just
-after:
+three paths, each with the launch counts set to 0 just before and read
+just after:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
      in five configurations, every output held against the plain forward
@@ -16,7 +16,21 @@ after:
      bases from configuration (a): reference distances, the all-pairs
      UPGMA tree (32,640 pairs at band 127), CIGARs and the report, each
      held against the same analysis on the CPU; then the B5 band doubling
-     over the same pairs and batched_cigar on wide edits.
+     over the same pairs and batched_cigar on wide edits;
+  3. the product path (kgl_gene_tpu_torch.analysis.lib_seqmutation.
+     MutateGenes.mutate_transcripts) at bench.py's end-to-end shape:
+     synthetic FASTA/GFF3/VCF of 256 samples, four genes of 3,000 coding
+     bases and 3,000 records with indels, parsed by the port's loaders,
+     then the SNP step and the SNP + indel step of every gene in one
+     pooled program and one fetch. It fails unless B2 and B1 launch in
+     both kinds of step, the 1,024 records and their MutateStats equal the
+     host-exact route's, every distance equals B3's exact one (the widest
+     16 also the numpy DP's), and both indel payloads give the same
+     records. It prints genomes/s and the stage split (median of 5 passes
+     after a warm one) and each step's time host-inclusive and on the
+     device (a CUDA graph), then runs the indel step alone at bands 0, 31,
+     63 and 127 and on the reverse strand (B = 256, S = 3,000), each
+     against its CPU run entry by entry, band 0 launching B3.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -40,7 +54,9 @@ the card's float32 rate, as every earlier run computed it) and
 issue_bound_ms (the same operations against the rate the card issues
 integer operations at). It imports nothing of JAX or of the JAX package.
 
-Output: progress lines, then one JSON line {"kernels": [...]}, the card's
+Output: progress lines, then one JSON line {"kernels": [...]} (the rows of
+B1, B2 and B3 also carry their launches in the product path's SNP and
+indel steps and in the band-0 indel step), the card's
 name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -77,6 +93,20 @@ WAVEFRONT_OPS_PER_CELL = 6       # compare, 2 adds, 2 mins, store select
 BANDED_OPS_PER_CELL = 8
 BANDED_CHOICES_OPS_PER_CELL = 15
 FAMILY_LOCAL_RECORDS = 16  # the local metric's plain CPU run is slow at 3 kb
+# The product path at bench.py's end-to-end shape (bench.py:139-142 and
+# :152): 256 samples, four single-exon genes of 3,000 coding bases on a
+# 120 kb contig, 3,000 VCF records of which about 10% are indels.
+PRODUCT = dict(n_samples=256, contig_len=120_000, n_genes=4, n_records=3_000,
+               coding_len=3_000, snp_only=False)
+PRODUCT_BUCKETS = dict(k_bucket=32, b_bucket=256)
+PRODUCT_PASSES = 5
+PRODUCT_ORACLE_RECORDS = 16  # distances also held against the numpy DP
+STAGES = ("parse_s", "capture_s", "dispatch_s", "fetch_s", "unpack_s", "total_s")
+# The indel step alone, at the forward step's geometry (S = 3,000), B = 256:
+# (band, reverse strand, slots K, insert width A), K * A <= band, so every
+# genome's edits fit the band as capture's edit bound guarantees.
+INDEL_ALONE = ((0, False, 16, 8), (31, False, 5, 6), (63, False, 10, 6), (127, False, 20, 6),
+               (63, True, 10, 6))
 
 
 def log(msg):
@@ -1157,6 +1187,255 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     return rows
 
 
+
+def indel_slots(rng, B, K, A, L):
+    """Slot tensors of B genomes as tests/test_indel_device.py's
+    _random_slots makes them: up to K SNPs, deletions of 1-5 bases and
+    insertions of 1-A bases, spans that do not touch."""
+    pos = np.zeros((B, K), np.int32)
+    kind = np.zeros((B, K), np.int8)
+    dlen = np.zeros((B, K), np.int32)
+    icodes = np.zeros((B, K, A), np.uint8)
+    ilen = np.zeros((B, K), np.int32)
+    alt = np.zeros((B, K), np.uint8)
+    valid = np.zeros((B, K), bool)
+    for b in range(B):
+        n = int(rng.integers(0, K + 1))
+        used, s = [], 0
+        for p in rng.permutation(L - 1)[: 3 * n]:
+            if s >= n:
+                break
+            p = int(p)
+            k = int(rng.integers(0, 3))
+            d = int(rng.integers(1, 6)) if k == 1 else 0
+            span = (p, min(p + d, L) + 1) if k == 1 else (p, p + 2)
+            if any(span[0] < hi and span[1] > lo for lo, hi in used):
+                continue
+            used.append(span)
+            pos[b, s], kind[b, s], dlen[b, s], valid[b, s] = p, k, d, True
+            if k == 0:
+                alt[b, s] = int(rng.integers(0, 4))
+            elif k == 2:
+                ilen[b, s] = int(rng.integers(1, A + 1))
+                icodes[b, s] = rng.integers(0, 4, size=A)
+            s += 1
+    return pos, kind, dlen, icodes, ilen, alt, valid
+
+
+def product_pass(paths, contig, txs, device):
+    """One pass as bench.py's bench_end_to_end times it: parse the VCF,
+    then MutateGenes.mutate_transcripts over every gene; the clock ends
+    when the records exist. Returns (results, stages, population, info)."""
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import MutateGenes
+    from kgl_gene_tpu_torch.io.vcf import parse_vcf_population
+
+    stages = {}
+    t0 = time.perf_counter()
+    pop, _header, info = parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID")
+    stages["parse_s"] = time.perf_counter() - t0
+    mutator = MutateGenes(contig, info_store=info, device=device, **PRODUCT_BUCKETS)
+    results = mutator.mutate_transcripts(pop, txs, timings=stages)
+    stages["total_s"] = time.perf_counter() - t0
+    return results, stages, pop, info
+
+
+def record_key(rec, distance=True):
+    return (rec.genome_id, rec.gene_id, rec.transcript_id, rec.variant_count,
+            rec.modified_coding, rec.validity.value) + ((rec.distance,) if distance else ())
+
+
+def same_results(name, got, want, distance=True):
+    """Records and MutateStats of two mutate_transcripts runs, field by field."""
+    n = 0
+    for (g_recs, g_stats), (w_recs, w_stats) in zip(got, want, strict=True):
+        if [record_key(r, distance) for r in g_recs] != [record_key(r, distance) for r in w_recs]:
+            raise AssertionError(f"{name}: records differ")
+        if vars(g_stats) != vars(w_stats):
+            raise AssertionError(f"{name}: stats differ: {vars(g_stats)} != {vars(w_stats)}")
+        n += len(g_recs)
+    log(f"  {name}: equal ({n} records and their stats)")
+
+
+def step_inputs(mutator, pop, tx, dev):
+    """The product pass's SNP and indel steps of one transcript, closed
+    over device copies of their capture tensors: {kind: (fn, shape)}, the
+    shape a string naming B, K (and A) and the distance band."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.myers import myers_band_for
+    from kgl_gene_tpu_torch.ops.pipeline import (
+        MIN_BANDED_LEN, indel_band_for, make_forward_step, make_indel_forward_step,
+        pad_coding_for,
+    )
+    from kgl_gene_tpu_torch.sequence.sequence import StrandSense
+
+    region = mutator.contig_ref.subsequence(tx.interval).codes
+    exons = tx.exon_arrays()
+    reverse = tx.strand is StrandSense.REVERSE
+    snp, indel, _empty, _host = mutator._capture(pop, tx, True)
+    out = {}
+    if snp.genome_ids:
+        step = make_forward_step(region, exons, tx.start, reverse, device=dev)
+        args = [torch.as_tensor(x, device=dev) for x in (snp.positions, snp.alt_codes, snp.valid)]
+        K = snp.positions.shape[1]
+        band = myers_band_for(K, max_band=127)
+        if tx.coding_nucleotides() < MIN_BANDED_LEN:
+            band = None
+        out["snp"] = (functools.partial(step, *args),
+                      f"B={len(snp.positions)} K={K} band {band or 'none (B3)'}")
+    if indel is not None and indel.genome_ids:
+        K, A = indel.pos.shape[1], indel.ins_codes.shape[2]
+        step = make_indel_forward_step(region, exons, tx.start, reverse,
+                                       pad_coding=pad_coding_for(K * A),
+                                       band_k=indel_band_for(indel.edit_bound), device=dev)
+        args = [torch.as_tensor(x, device=dev) for x in (
+            indel.pos, indel.kind, indel.del_len, indel.ins_codes, indel.ins_len,
+            indel.alt_code, indel.valid)]
+        out["indel"] = (functools.partial(step, *args),
+                        f"B={len(indel.pos)} K={K} A={A} edit bound {indel.edit_bound} "
+                        f"band {indel_band_for(indel.edit_bound) or '0 (B3)'}")
+    return out
+
+
+def phase_product(dev, workdir):
+    """Phase 3c: the product path (synthetic FASTA/GFF3/VCF -> PopulationDB
+    -> capture -> SNP and SNP + indel steps -> one packed fetch -> records)
+    at bench.py's end-to-end shape. Returns the launches of each kind of
+    step in the first pass, counted from 0, and of the band-0 indel step."""
+    import torch
+
+    import kgl_gene_tpu_torch.analysis.lib_seqmutation as lsm
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.genome.genome import GenomeReference
+    from kgl_gene_tpu_torch.io.synthetic import generate_population_files
+    from kgl_gene_tpu_torch.ops.edit_distance import levenshtein_numpy
+    from kgl_gene_tpu_torch.ops.pipeline import make_indel_forward_step
+    from kgl_gene_tpu_torch.ops.wavefront import wavefront_levenshtein
+    from kgl_gene_tpu_torch.sequence.alphabet import DNA5
+
+    t0 = time.perf_counter()
+    paths = generate_population_files(workdir, **PRODUCT)
+    genome = GenomeReference.create_genome_database("synthetic", paths.fasta, paths.gff3)
+    contig = genome.get_contig(paths.contig_id)
+    txs = [contig.get_transcription(paths.gene_id(g), paths.transcript_id(g))
+           for g in range(paths.n_genes)]
+    log(f"  files and genome: {time.perf_counter() - t0:.1f} s")
+
+    # The first pass is the path's run: counts from 0, read just after.
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    results, stages, pop, info = product_pass(paths, contig, txs, dev)
+    total = dict(kernels.LAUNCHES)
+    per_step = stages["launches"]
+    log(f"  product path launches: {total}; by step {per_step}")
+    for kind in ("snp", "indel"):
+        for name in ("translate", "myers"):
+            if per_step.get(kind, {}).get(name, 0) < 1:
+                raise AssertionError(f"kernel {name} never launched in the {kind} step")
+    for name, n in total.items():
+        if n != sum(counts.get(name, 0) for counts in per_step.values()):
+            raise AssertionError(f"{name}: launches outside the steps")
+    n_records = sum(len(recs) for recs, _stats in results)
+    capture = lsm.MutateGenes(contig, info_store=info, device=dev, **PRODUCT_BUCKETS)._capture
+    n_host = sum(len(capture(pop, tx, True)[3]) for tx in txs)
+    log(f"  {n_records} records, {n_host} of them from the host-exact engine")
+    if n_records != paths.n_genes * paths.n_samples or stages["n_device_fetches"] != 1:
+        raise AssertionError(f"{n_records} records in {stages['n_device_fetches']} fetches")
+
+    passes = [product_pass(paths, contig, txs, dev)[1] for _ in range(PRODUCT_PASSES)]
+    med = {k: statistics.median(p[k] for p in passes) for k in STAGES}
+    log(f"  product pass, median of {PRODUCT_PASSES} after one warm pass: "
+        f"{med['total_s'] * 1e3:.3f} ms for {n_records} records, "
+        f"{n_records / med['total_s']:.1f} genomes/s")
+    log("  stages (median ms): " + ", ".join(f"{k} {med[k] * 1e3:.3f}" for k in STAGES)
+        + "; per pass: " + "; ".join(
+            ", ".join(f"{p[k] * 1e3:.3f}" for k in STAGES) for p in passes))
+
+    # Records: the device route against the host-exact engine.
+    mutator = lsm.MutateGenes(contig, info_store=info, device=dev, **PRODUCT_BUCKETS)
+    t0 = time.perf_counter()
+    host = lsm.MutateGenes(contig, info_store=info, use_device=False).mutate_transcripts(pop, txs)
+    log(f"  host-exact route: {time.perf_counter() - t0:.1f} s")
+    same_results("device route vs host-exact route", results, host, distance=False)
+
+    # Distances: every one against kernel B3's exact distance, some against
+    # the numpy DP.
+    checked = []
+    for tx, (recs, _stats) in zip(txs, results):
+        ref = contig.coding_sequence(tx).codes
+        width = max(len(r.modified_coding) for r in recs)
+        seqs = np.zeros((len(recs), width), np.uint8)
+        lens = np.array([len(r.modified_coding) for r in recs], np.int32)
+        for i, r in enumerate(recs):
+            seqs[i, : lens[i]] = DNA5.from_string(r.modified_coding)
+        exact_d = wavefront_levenshtein(seqs, lens, ref[None, :],
+                                        np.full(len(recs), len(ref), np.int32), device=dev)
+        got = np.array([r.distance for r in recs])
+        if not np.array_equal(got, exact_d):
+            raise AssertionError(f"{tx.transcript_id}: {int((got != exact_d).sum())} distances "
+                                 "differ from B3's")
+        checked += [(int(d), seqs[i, : lens[i]], ref) for i, d in enumerate(got)]
+    log(f"  distances: {len(checked)} equal to B3's exact distance, "
+        f"widest {max(d for d, _a, _b in checked)}")
+    for d, a, b in sorted(checked, key=lambda c: -c[0])[:PRODUCT_ORACLE_RECORDS]:
+        if d != levenshtein_numpy(a, b):
+            raise AssertionError("a distance differs from the numpy DP")
+    log(f"  distances: the {PRODUCT_ORACLE_RECORDS} widest equal to the numpy DP")
+
+    # The other indel payload: 8-byte tails, sequences replayed on the host.
+    lsm.INDEL_TAIL_ONLY = True
+    try:
+        tails = lsm.MutateGenes(contig, info_store=info, device=dev,
+                                **PRODUCT_BUCKETS).mutate_transcripts(pop, txs)
+    finally:
+        lsm.INDEL_TAIL_ONLY = False
+    same_results("tail payload vs packed payload", tails, results)
+
+    # Each step on its own: host-inclusive (events around back-to-back
+    # calls) and on the device alone (the calls in one CUDA graph).
+    step_rows = []
+    for tx in txs:
+        for kind, (fn, shape) in step_inputs(mutator, pop, tx, dev).items():
+            ms = time_cuda(fn, 20)
+            dev_ms = time_device([fn], 10)
+            step_rows.append((tx.transcript_id, kind, shape, ms, dev_ms))
+            log(f"  step {tx.transcript_id} {kind} {shape}: {ms:.4f} ms host-inclusive, "
+                f"{dev_ms:.4f} ms on the device")
+    for kind in ("snp", "indel"):
+        rows = [r for r in step_rows if r[1] == kind]
+        log(f"  {kind} steps of a pass: {sum(r[3] for r in rows):.4f} ms host-inclusive, "
+            f"{sum(r[4] for r in rows):.4f} ms on the device ({len(rows)} steps)")
+
+    # The indel step alone at each band and on the reverse strand, against
+    # its CPU run entry by entry.
+    rng = np.random.default_rng(SEED + 7)
+    region = gene_region(rng)
+    band0 = {}
+    for band, reverse, K, A in INDEL_ALONE:
+        args = indel_slots(rng, 256, K, A, REGION_LEN)
+        kw = dict(reverse_strand=reverse, pad_coding=K * A, band_k=band)
+        step = make_indel_forward_step(region, EXONS, 0, device=dev, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        got = step(*args)
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        dist_kernel = "myers" if band else "wavefront"
+        other = "wavefront" if band else "myers"
+        if counts.get("translate", 0) < 1 or counts.get(dist_kernel, 0) < 1 or counts.get(other):
+            raise AssertionError(f"indel step band {band}: launches {counts}")
+        if not band:
+            band0 = counts
+        t0 = time.perf_counter()
+        want = make_indel_forward_step(region, EXONS, 0, device="cpu", **kw)(*args)
+        log(f"  indel step band {band} reverse {reverse} K={K} A={A}: launches {counts}, "
+            f"CPU run {time.perf_counter() - t0:.1f} s")
+        for field in got._fields:
+            exact(f"indel band {band} rev {reverse}.{field}", getattr(got, field),
+                  getattr(want, field))
+    return per_step, band0
+
+
 def main() -> int:
     try:
         import torch
@@ -1225,6 +1504,13 @@ def main() -> int:
         phase_wide_cigars(dev, errs)
         log(f"  phase 3b: {time.perf_counter() - t0:.1f} s")
 
+        phase = "main path: product path"
+        log(f"phase 3c: {phase}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            product, band0 = phase_product(dev, workdir)
+        log(f"  phase 3c: {time.perf_counter() - t0:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -1256,6 +1542,10 @@ def main() -> int:
             "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "issue_bound_ms": issue_ms,
+            **({"launches_product": {kind: counts.get(r["name"], 0)
+                                     for kind, counts in product.items()},
+                "launches_indel_band0": band0.get(r["name"], 0)}
+               if r["name"] in ("translate", "myers", "wavefront") else {}),
             **{key: val for key, val in r.items()
                if ("_ms" in key or key.startswith("ms_"))
                and key not in ("plain_ms", "bound_ms", "library_ms")},

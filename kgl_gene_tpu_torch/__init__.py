@@ -6,11 +6,14 @@ points run on the card unless the caller passes device="cpu"; with no
 card and no such request they raise.
 
 Slices in place: the population x transcript forward step
-(ops/pipeline.py make_forward_step) and the transcript-family analysis
+(ops/pipeline.py make_forward_step), the transcript-family analysis
 (analysis/lib_seqmutation.py TranscriptFamilyAnalysis: distances, CIGARs,
-the all-pairs UPGMA tree), with hand-written CUDA kernels for codon
-translation, exact Levenshtein by full-width bit vectors, banded Myers and
-the banded row DP with its traceback codes (csrc/, built by kernels/).
+the all-pairs UPGMA tree) and the product path (FASTA + GFF3 + VCF through
+io/, variant/ and mutation/capture.py to the SNP and SNP + indel steps
+and records, analysis/lib_seqmutation.py MutateGenes), with hand-written
+CUDA kernels for codon translation, exact Levenshtein by full-width bit
+vectors, banded Myers and the banded row DP with its traceback codes
+(csrc/, built by kernels/).
 """
 
 from __future__ import annotations

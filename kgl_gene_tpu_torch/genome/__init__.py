@@ -1,2 +1,2 @@
-"""Genome feature types (copies of kgl_gene_tpu/genome, cut to what the
-port reads)."""
+"""The genome model: features, contigs and the genome reference (copies of
+kgl_gene_tpu/genome)."""

@@ -1,1 +1,2 @@
-"""Alphabets and translation tables (copies of kgl_gene_tpu/sequence)."""
+"""Alphabets, sequences and translation tables (copies of
+kgl_gene_tpu/sequence)."""
