@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the kernels under kgl_gene_tpu_torch/csrc, holds each one against
-its plain PyTorch version on the card (exact integer equality), and drives
-three paths, each with the launch counts set to 0 just before and read
-just after:
+Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
+host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
+kernel against its plain PyTorch version on the card (exact integer
+equality), and drives four paths, the first three with the launch counts
+set to 0 just before and read just after:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
      in five configurations, every output held against the plain forward
@@ -20,17 +21,32 @@ just after:
   3. the product path (kgl_gene_tpu_torch.analysis.lib_seqmutation.
      MutateGenes.mutate_transcripts) at bench.py's end-to-end shape:
      synthetic FASTA/GFF3/VCF of 256 samples, four genes of 3,000 coding
-     bases and 3,000 records with indels, parsed by the port's loaders,
-     then the SNP step and the SNP + indel step of every gene in one
-     pooled program and one fetch. It fails unless B2 and B1 launch in
-     both kinds of step, the 1,024 records and their MutateStats equal the
-     host-exact route's, every distance equals B3's exact one (the widest
-     16 also the numpy DP's), and both indel payloads give the same
-     records. It prints genomes/s and the stage split (median of 5 passes
-     after a warm one) and each step's time host-inclusive and on the
-     device (a CUDA graph), then runs the indel step alone at bands 0, 31,
-     63 and 127 and on the reverse strand (B = 256, S = 3,000), each
-     against its CPU run entry by entry, band 0 launching B3.
+     bases and 3,000 records with indels, parsed by the port's loaders
+     (the VCF by the native C++ record loop), then the SNP step and the
+     SNP + indel step of every gene in one pooled program and one fetch.
+     It fails unless B2 and B1 launch in both kinds of step, the 1,024
+     records and their MutateStats equal the host-exact route's, every
+     distance equals B3's exact one (the widest 16 also the numpy DP's),
+     both indel payloads give the same records, the streaming Python parse
+     of the same VCF and the native parse of its BGZF copy give the same
+     population, and the streaming parse's population the same records.
+     It prints genomes/s and the stage split (median of 5 passes after a
+     warm one) and each step's time host-inclusive and on the device (a
+     CUDA graph), then runs the indel step alone at bands 0, 31, 63 and
+     127 and on the reverse strand (B = 256, S = 3,000), each against its
+     CPU run entry by entry, band 0 launching B3;
+  4. population scale (bench.py's bench_scale with 2 x 10^5 records of
+     1,000 samples, about 2.6 GB): native ingest, VariantMajorCSR, allele
+     frequencies and het/hom by genome, inbreeding streamed through the
+     card (parallel/mesh.py streamed_inbreeding, Simple and RitlandLocus)
+     and the four estimators on a dense window of 1,000 genomes x 10,000
+     loci. It fails unless the incidences equal what numpy counts from the
+     generator's seed and every F value on the card equals the CPU run of
+     the same function within tests/test_torch_stats.py's tolerances. It
+     prints each stage's seconds, the ingest rate, peak host RSS and
+     device memory, and each device function's time beside its byte
+     bound. These functions are plain PyTorch (no Pallas kernel stands
+     behind them in the JAX package).
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -54,7 +70,9 @@ the card's float32 rate, as every earlier run computed it) and
 issue_bound_ms (the same operations against the rate the card issues
 integer operations at). It imports nothing of JAX or of the JAX package.
 
-Output: progress lines, then one JSON line {"kernels": [...]} (the rows of
+Output: progress lines, then one JSON line {"device_functions": [...]}
+(phase 3d's device functions: time, launches, byte bound), one
+{"scale": {...}} (phase 3d's stages and checks), one {"kernels": [...]} (the rows of
 B1, B2 and B3 also carry their launches in the product path's SNP and
 indel steps and in the band-0 indel step), the card's
 name and power limit from nvidia-smi, and as the last line
@@ -64,8 +82,12 @@ is no CUDA device, when the port is missing, or when any phase fails.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
+import multiprocessing
+import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -107,6 +129,15 @@ STAGES = ("parse_s", "capture_s", "dispatch_s", "fetch_s", "unpack_s", "total_s"
 # genome's edits fit the band as capture's edit bound guarantees.
 INDEL_ALONE = ((0, False, 16, 8), (31, False, 5, 6), (63, False, 10, 6), (127, False, 20, 6),
                (63, True, 10, 6))
+# Population scale at bench.py's bench_scale shape (bench.py:282-408): a
+# Pf-diploid VCF of 1,000 samples from generate_scale_vcf (seed 11, chunks
+# of 20,000 records), cut from 10^6 to 2 x 10^5 records to fit the script's
+# time: about 2.6 GB and 2 x 10^8 genotype cells.
+SCALE = dict(n_records=200_000, n_samples=1_000)
+SCALE_SEED, SCALE_CHUNK_ROWS = 11, 20_000  # generate_scale_vcf's defaults, replayed below
+SCALE_WINDOW = 10_000  # loci of the dense window the four estimators run on
+# Tolerances of tests/test_torch_stats.py: the card against the CPU.
+ESTIMATOR_ATOL = {"Simple": 1e-5, "RitlandLocus": 1e-5, "HallME": 1e-3, "Loglikelihood": 1e-4}
 
 
 def log(msg):
@@ -1223,20 +1254,61 @@ def indel_slots(rng, B, K, A, L):
 
 
 def product_pass(paths, contig, txs, device):
-    """One pass as bench.py's bench_end_to_end times it: parse the VCF,
-    then MutateGenes.mutate_transcripts over every gene; the clock ends
-    when the records exist. Returns (results, stages, population, info)."""
+    """One pass as bench.py's bench_end_to_end times it: parse the VCF by
+    the native record loop (use_native=True: it raises rather than
+    stream), then MutateGenes.mutate_transcripts over every gene; the
+    clock ends when the records exist. Returns (results, stages,
+    (population, header, info))."""
     from kgl_gene_tpu_torch.analysis.lib_seqmutation import MutateGenes
     from kgl_gene_tpu_torch.io.vcf import parse_vcf_population
 
     stages = {}
     t0 = time.perf_counter()
-    pop, _header, info = parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID")
+    pop, header, info = parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID",
+                                             use_native=True)
     stages["parse_s"] = time.perf_counter() - t0
     mutator = MutateGenes(contig, info_store=info, device=device, **PRODUCT_BUCKETS)
     results = mutator.mutate_transcripts(pop, txs, timings=stages)
     stages["total_s"] = time.perf_counter() - t0
-    return results, stages, pop, info
+    return results, stages, (pop, header, info)
+
+
+def population_snapshot(pop):
+    """Per-(genome, contig) incidence tuples resolved through the arena, as
+    tests/test_native_ingest.py's _population_snapshot builds them: two
+    populations with different arenas compare equal."""
+    out = {}
+    arena = pop.arena
+    for gid, genome in pop:
+        for cid, contig in genome:
+            cols = contig.columns()
+            out[(gid, cid)] = [(
+                arena.contig_name(arena.contigs[row]), int(cols["offset"][i]),
+                arena.ref_codes(row).tobytes(), arena.alt_codes(row).tobytes(),
+                arena.identifier(row), arena.info_row(row), int(cols["phase"][i]),
+                int(cols["ref_count"][i]), int(cols["alt_count"][i]), int(cols["dp_count"][i]),
+                float(cols["gq_value"][i]), float(cols["quality"][i]), bool(cols["pass"][i]),
+            ) for i, row in enumerate(int(r) for r in cols["row"])]
+    return out
+
+
+def same_population(name, got, want):
+    """Two (population, header, info) parses: genomes in order, incidences,
+    header sample names and every subscribed INFO value."""
+    (g_pop, g_head, g_info), (w_pop, w_head, w_info) = got, want
+    if list(g_pop.genome_map) != list(w_pop.genome_map) or g_head.genome_names != w_head.genome_names:
+        raise AssertionError(f"{name}: genomes differ")
+    if population_snapshot(g_pop) != population_snapshot(w_pop):
+        raise AssertionError(f"{name}: incidences differ")
+    if g_info.count != w_info.count:
+        raise AssertionError(f"{name}: {g_info.count} INFO rows != {w_info.count}")
+    for fid in sorted(w_info.subscribed):
+        for r in range(w_info.count):
+            a, b = g_info.value(fid, r), w_info.value(fid, r)
+            if not (a == b or (isinstance(b, float) and np.isnan(b) and np.isnan(a))):
+                raise AssertionError(f"{name}: INFO {fid} row {r}: {a} != {b}")
+    log(f"  {name}: equal ({g_pop.genome_count()} genomes, {g_pop.variant_count()} incidences, "
+        f"{g_info.count} INFO rows)")
 
 
 def record_key(rec, distance=True):
@@ -1313,6 +1385,9 @@ def phase_product(dev, workdir):
     from kgl_gene_tpu_torch.ops.wavefront import wavefront_levenshtein
     from kgl_gene_tpu_torch.sequence.alphabet import DNA5
 
+    from kgl_gene_tpu_torch.io.streams import write_bgzf
+    from kgl_gene_tpu_torch.io.vcf import parse_vcf_population
+
     t0 = time.perf_counter()
     paths = generate_population_files(workdir, **PRODUCT)
     genome = GenomeReference.create_genome_database("synthetic", paths.fasta, paths.gff3)
@@ -1324,7 +1399,8 @@ def phase_product(dev, workdir):
     # The first pass is the path's run: counts from 0, read just after.
     torch.cuda.synchronize()
     kernels.reset_launches()
-    results, stages, pop, info = product_pass(paths, contig, txs, dev)
+    results, stages, parsed = product_pass(paths, contig, txs, dev)
+    pop, _header, info = parsed
     total = dict(kernels.LAUNCHES)
     per_step = stages["launches"]
     log(f"  product path launches: {total}; by step {per_step}")
@@ -1341,6 +1417,25 @@ def phase_product(dev, workdir):
     log(f"  {n_records} records, {n_host} of them from the host-exact engine")
     if n_records != paths.n_genes * paths.n_samples or stages["n_device_fetches"] != 1:
         raise AssertionError(f"{n_records} records in {stages['n_device_fetches']} fetches")
+
+    # The streaming Python loop on the same VCF: the same population, and
+    # the same records from it.
+    t0 = time.perf_counter()
+    streamed = parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID", use_native=False)
+    log(f"  streaming parse (one run): {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    same_population("native parse vs streaming parse", parsed, streamed)
+    from_streamed = lsm.MutateGenes(contig, info_store=streamed[2], device=dev,
+                                    **PRODUCT_BUCKETS).mutate_transcripts(streamed[0], txs)
+    same_results("records from the streaming parse vs the native parse", from_streamed, results)
+    # The BGZF route: the same VCF compressed by write_bgzf, parsed natively
+    # through the native slab stream.
+    bgz = paths.vcf + ".bgz"
+    with open(paths.vcf, "rb") as f:
+        write_bgzf(bgz, f.read())
+    t0 = time.perf_counter()
+    from_bgzf = parse_vcf_population(bgz, "pop", "PF_DIPLOID", use_native=True)
+    log(f"  BGZF native parse (one run): {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    same_population("BGZF native parse vs streaming parse", from_bgzf, streamed)
 
     passes = [product_pass(paths, contig, txs, dev)[1] for _ in range(PRODUCT_PASSES)]
     med = {k: statistics.median(p[k] for p in passes) for k in STAGES}
@@ -1436,6 +1531,193 @@ def phase_product(dev, workdir):
     return per_step, band0
 
 
+def scale_cells(n_records, n_samples, seed=SCALE_SEED, chunk_rows=SCALE_CHUNK_ROWS):
+    """(het cells, hom cells) of generate_scale_vcf's file, counted by numpy
+    from the generator's seed alone: the same draws in the same order
+    (allele frequencies, the cell draw, the AD/DP digit draws, which are
+    drawn and dropped to keep the stream aligned), and the generator's
+    thresholds, without writing a byte."""
+    rng = np.random.default_rng(seed)
+    het = hom = 0
+    for start in range(0, n_records, chunk_rows):
+        rows = min(chunk_rows, n_records - start)
+        af = rng.beta(0.3, 6.0, rows)
+        p_het, p_hom = 2.0 * af * (1.0 - af), af * af
+        t1 = (255 * p_het).astype(np.uint8)[:, None]
+        t2 = (255 * (p_het + p_hom)).astype(np.uint8)[:, None]
+        u = rng.integers(0, 256, size=(rows, n_samples), dtype=np.uint16)
+        het += int(np.count_nonzero(u < t1))
+        hom += int(np.count_nonzero((u >= t1) & (u < t2)))
+        rng.integers(0, 10, size=(rows, n_samples, 6), dtype=np.uint8)
+        rng.integers(1, 10, size=(rows, n_samples, 3), dtype=np.uint8)
+    return het, hom
+
+
+def peak_rss_kb():
+    """The process's peak resident set (VmHWM), in kB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1])
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+
+
+def phase_scale(dev, workdir):
+    """Phase 3d: population scale (bench.py's bench_scale, records cut to
+    2 x 10^5). Native ingest of the generated VCF, VariantMajorCSR, allele
+    frequencies and het/hom by genome, inbreeding streamed through the card
+    (Simple, RitlandLocus), and the four estimators on a dense window of
+    1,000 genomes x 10,000 loci; the card's F values against the same
+    functions on the CPU. Returns (the scale line's dict, the rows of the
+    device functions)."""
+    import torch
+
+    import kgl_gene_tpu_torch.parallel.mesh as mesh
+    from kgl_gene_tpu_torch.io.synthetic import generate_scale_vcf
+    from kgl_gene_tpu_torch.io.vcf import parse_vcf_population
+    from kgl_gene_tpu_torch.stats.inbreeding import run_estimator
+    from kgl_gene_tpu_torch.variant.columnar import VariantMajorCSR
+
+    n_records, n_samples = SCALE["n_records"], SCALE["n_samples"]
+    path = os.path.join(workdir, "scale.vcf")
+    out = {"records": n_records, "samples": n_samples}
+    # Peak RSS of this phase alone: Linux resets the process's high-water
+    # mark (VmHWM) on writing 5 to clear_refs; where that is refused the
+    # peak read at the end is the whole process's.
+    try:
+        with open("/proc/self/clear_refs", "w") as f:
+            f.write("5")
+        out["rss_peak_of"] = "phase 3d"
+    except OSError:
+        out["rss_peak_of"] = "the process"
+    spawn = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        replay = pool.submit(scale_cells, n_records, n_samples)
+        t0 = time.perf_counter()
+        generate_scale_vcf(path, **SCALE)
+        out["generate_s"] = time.perf_counter() - t0
+        out["vcf_mb"] = os.path.getsize(path) / 1e6
+        log(f"  generated {out['vcf_mb']:.1f} MB in {out['generate_s']:.1f} s")
+
+        t0 = time.perf_counter()
+        pop, _header, info = parse_vcf_population(path, "scale", "PF_DIPLOID",
+                                                  subscribed_info=["AF"], use_native=True)
+        out["ingest_s"] = time.perf_counter() - t0
+        het_cells, hom_cells = replay.result()
+    out["ingest_mb_per_s"] = out["vcf_mb"] / out["ingest_s"]
+    out["ingest_cells_per_s"] = n_records * n_samples / out["ingest_s"]
+    log(f"  native ingest: {out['ingest_s']:.3f} s, {out['ingest_mb_per_s']:.1f} MB/s, "
+        f"{out['ingest_cells_per_s']:.4g} cells/s")
+    if pop.genome_count() != n_samples or info.count != n_records:
+        raise AssertionError(f"{pop.genome_count()} genomes, {info.count} INFO rows")
+    out["incidences"] = pop.variant_count()
+    if out["incidences"] != het_cells + 2 * hom_cells:
+        raise AssertionError(f"{out['incidences']} incidences; the generator's seed gives "
+                             f"{het_cells} het and {hom_cells} hom cells")
+    log(f"  {out['incidences']} incidences = {het_cells} het + 2 x {hom_cells} hom cells, "
+        "as numpy counts them from the generator's seed")
+
+    t0 = time.perf_counter()
+    csr = VariantMajorCSR(pop)
+    out["csr_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    af = csr.allele_frequencies()
+    het, hom = csr.het_hom_by_genome()
+    out["af_s"] = time.perf_counter() - t0
+    if (csr.genome_count, csr.nnz, int(het.sum()), int(hom.sum())) != (
+            n_samples, het_cells + hom_cells, het_cells, hom_cells):
+        raise AssertionError("the CSR's cells differ from the generator's")
+    out["variants"], out["nnz"] = csr.variant_count, csr.nnz
+    log(f"  CSR {out['csr_s']:.3f} s ({csr.variant_count} variants, {csr.nnz} cells), "
+        f"allele frequencies and het/hom {out['af_s']:.3f} s")
+
+    # Inbreeding streamed through the card: _inbreed_moments counted per
+    # call, the accumulator fetched once.
+    calls = []
+    moments = mesh._inbreed_moments
+    mesh._inbreed_moments = lambda *a, **k: calls.append(a[0].shape) or moments(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        f_card = mesh.streamed_inbreeding(csr, af, dev)
+        out["inbreed_s"] = time.perf_counter() - t0
+        out["cuda_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        mesh._inbreed_moments = moments
+    t0 = time.perf_counter()
+    f_cpu = mesh.streamed_inbreeding(csr, af, "cpu")
+    out["inbreed_cpu_s"] = time.perf_counter() - t0
+    for name in f_card:
+        err = float(np.abs(f_card[name] - f_cpu[name]).max())
+        out[f"streamed_{name}_max_abs_err"] = err
+        if not err <= ESTIMATOR_ATOL[name]:
+            raise AssertionError(f"streamed {name}: card and CPU differ by {err}")
+    out["mean_inbreeding_f"] = float(np.nanmean(f_card["Simple"]))
+    log(f"  streamed inbreeding on the card {out['inbreed_s']:.3f} s ({len(calls)} blocks of "
+        f"{calls[0]} packed bytes), on the CPU {out['inbreed_cpu_s']:.3f} s; card vs CPU "
+        + ", ".join(f"{n} {out[f'streamed_{n}_max_abs_err']:.3g}" for n in f_card))
+
+    # The four estimators on a dense window: every k-th variant with
+    # 0 < p < 1, k chosen so the window holds SCALE_WINDOW loci.
+    cand = np.nonzero((af > 0) & (af < 1))[0]
+    stride = max(1, len(cand) // SCALE_WINDOW)
+    sel = cand[::stride][:SCALE_WINDOW]
+    z = np.ascontiguousarray(csr.dense_block_t(0, csr.variant_count)[sel].T)
+    p = af[sel]
+    out["window"] = {"genomes": z.shape[0], "loci": z.shape[1], "stride": stride}
+    rows = []
+    for name in ESTIMATOR_ATOL:
+        t0 = time.perf_counter()
+        got = mesh.sharded_inbreeding(z, p, dev, name)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = mesh.sharded_inbreeding(z, p, "cpu", name)
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(got - want).max())
+        out[f"{name}_max_abs_err"] = err
+        log(f"  {name}: card {card_s:.3f} s, CPU {cpu_s:.3f} s, max |card - CPU| {err:.3g}")
+        if not err <= ESTIMATOR_ATOL[name]:
+            raise AssertionError(f"{name}: card and CPU differ by {err}")
+        rows.append((name, cpu_s))
+
+    # Each device function timed alone on the card (CUDA events around
+    # back-to-back calls), beside its byte bound: every input read once,
+    # every output written once.
+    G = csr.genome_count
+    table = []
+    packed = torch.randint(0, 256, calls[0], dtype=torch.uint8, device=dev)
+    p_blk = torch.as_tensor(np.resize(af.astype(np.float32), 4 * calls[0][0]), device=dev)
+    acc = torch.zeros((G, 5), dtype=torch.float32, device=dev)
+    ms = time_cuda(functools.partial(moments, packed, p_blk, acc), 3, windows=3)
+    nbytes = packed.numel() + p_blk.numel() * 4 + acc.numel() * 4 * 2
+    table.append({"name": "_inbreed_moments", "source": "kgl_gene_tpu_torch/parallel/mesh.py",
+                  "replaces": "kgl_gene_tpu/parallel/mesh.py:148", "launches": len(calls),
+                  "shape": f"packed {tuple(calls[0])} uint8", "ms": ms,
+                  "cpu_ms": out["inbreed_cpu_s"] * 1e3 / len(calls),
+                  "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+    z_dev = torch.as_tensor(z, device=dev).to(torch.int32)
+    p_dev = torch.as_tensor(p.astype(np.float32), device=dev)
+    v_dev = ((p_dev > 0) & (p_dev < 1)).expand(z_dev.shape)
+    nbytes = z_dev.numel() * 4 + z_dev.numel() + p_dev.numel() * 4 + G * 4
+    jax_rows = {"RitlandLocus": 77, "Simple": 88, "HallME": 97, "Loglikelihood": 128}
+    for name, cpu_s in rows:
+        fn = functools.partial(run_estimator, name, z_dev, p_dev, v_dev)
+        table.append({"name": name, "source": "kgl_gene_tpu_torch/stats/inbreeding.py",
+                      "replaces": f"kgl_gene_tpu/stats/inbreeding.py:{jax_rows[name]}",
+                      "launches": 1, "shape": f"zygosity {tuple(z.shape)} int32",
+                      "ms": time_cuda(fn, 1 if name in ("HallME", "Loglikelihood") else 5,
+                                      windows=3),
+                      "cpu_ms": cpu_s * 1e3,
+                      "bound_ms": nbytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+    for row in table:
+        log(f"  {row['name']} {row['shape']}: {row['ms']:.4f} ms on the card "
+            f"(bound {row['bound_ms']:.4f} ms by bytes), CPU {row['cpu_ms']:.3f} ms, "
+            f"{row['launches']} on the path")
+    out["rss_gb"] = peak_rss_kb() / 1e6
+    return out, table
+
+
 def main() -> int:
     try:
         import torch
@@ -1462,8 +1744,13 @@ def main() -> int:
     try:
         log("phase 1: build")
         t0 = time.perf_counter()
-        kernels.library()
-        log(f"  built and loaded in {time.perf_counter() - t0:.1f} s")
+        from kgl_gene_tpu_torch import native
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            native_build = pool.submit(native.library)  # g++ beside the nvcc processes
+            kernels.library()
+            native_build.result()
+        log(f"  built and loaded in {time.perf_counter() - t0:.1f} s "
+            f"(the CUDA kernels and {native.LIB_PATH.name})")
         for line in kernels.build_log.splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 log("  " + line.strip())
@@ -1511,6 +1798,14 @@ def main() -> int:
             product, band0 = phase_product(dev, workdir)
         log(f"  phase 3c: {time.perf_counter() - t0:.1f} s")
 
+        phase = "main path: population scale"
+        log(f"phase 3d: {phase}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            scale, device_functions = phase_scale(dev, workdir)
+        scale["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3d: {scale['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -1550,6 +1845,8 @@ def main() -> int:
                if ("_ms" in key or key.startswith("ms_"))
                and key not in ("plain_ms", "bound_ms", "library_ms")},
         })
+    print(json.dumps({"device_functions": device_functions}))
+    print(json.dumps({"scale": scale}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,12 @@ Slices in place: the population x transcript forward step
 (analysis/lib_seqmutation.py TranscriptFamilyAnalysis: distances, CIGARs,
 the all-pairs UPGMA tree) and the product path (FASTA + GFF3 + VCF through
 io/, variant/ and mutation/capture.py to the SNP and SNP + indel steps
-and records, analysis/lib_seqmutation.py MutateGenes), with hand-written
-CUDA kernels for codon translation, exact Levenshtein by full-width bit
+and records, analysis/lib_seqmutation.py MutateGenes) with the native C++
+VCF ingest (native/, built by g++ on first use), and the population
+statistics (variant/columnar.py, stats/, parallel/mesh.py: allele
+frequencies, FWS, the inbreeding estimators on the device and inbreeding
+streamed over a population too large to densify), with hand-written CUDA
+kernels for codon translation, exact Levenshtein by full-width bit
 vectors, banded Myers and the banded row DP with its traceback codes
 (csrc/, built by kernels/).
 """

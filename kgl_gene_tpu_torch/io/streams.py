@@ -1,7 +1,8 @@
 """Stream IO: transparent text/gzip/bgzf/bz2 line readers.
 
-Copy of kgl_gene_tpu/io/streams.py without the native whole-file BGZF
-inflate: a BGZF file always streams through the threaded BGZFReader.
+Copy of kgl_gene_tpu/io/streams.py. A BGZF file under 2 GiB inflates
+whole through the native library (native/, built on first use); a larger
+one streams through the threaded BGZFReader.
 
 Capability parity with the reference stream factory
 (kel_io/kel_basic_io.h:75-105 BaseStreamIO::getStreamIO and
@@ -51,6 +52,14 @@ def open_text_stream(path: str):
     (and BGZF by magic). Mirrors BaseStreamIO::getStreamIO."""
     lower = path.lower()
     if lower.endswith(_BGZF_EXTENSIONS) or (lower.endswith(_GZ_EXTENSIONS) and is_bgzf(path)):
+        # Native whole-file parallel inflate for files that fit comfortably
+        # in memory; the threaded streaming reader otherwise.
+        if os.path.getsize(path) < 2 << 30:
+            from ..native import bgzf_decompress
+
+            return io.TextIOWrapper(
+                io.BytesIO(bgzf_decompress(path)), encoding="ascii", errors="replace"
+            )
         return io.TextIOWrapper(BGZFReader(path), encoding="ascii", errors="replace")
     if lower.endswith(_GZ_EXTENSIONS):
         return gzip.open(path, "rt")

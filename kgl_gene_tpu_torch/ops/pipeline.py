@@ -48,6 +48,7 @@ __all__ = [
     "make_indel_forward_step",
     "pad_coding_for",
     "reconstruct_indel_coding_host",
+    "reconstruct_indel_coding_plain",
 ]
 
 # The banded distance pays off only on long transcripts.
@@ -385,14 +386,39 @@ def reconstruct_indel_coding_host(
     valid: np.ndarray,
     pad_coding: int,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Numpy replay of forward_indel steps 1-4 (SNP scatter, deletion
+    """Host replay of forward_indel steps 1-4 (SNP scatter, deletion
     mask, insertion prefix map, exon splice in modified coordinates,
     strand convert): (coding (B, S_pad) codes, coding_len (B,)).
 
     Lets the pooled device program ship 8-byte tails instead of packed
     sequences: the mutant strings re-derive on the host from the capture
-    tensors the device consumed, by the same formulas. The JAX package's
-    native single-pass form of this replay is not part of this package."""
+    tensors the device consumed, by the same formulas. Runs the native
+    single-pass replay (native/kgt_native.cpp kgt_indel_reconstruct);
+    reconstruct_indel_coding_plain is its numpy plain version."""
+    from ..native import indel_reconstruct
+
+    exon_bounds = np.asarray(exon_bounds, np.int64)
+    pad_coding = pad_coding_for(pad_coding)
+    S_ref = int(sum(int(hi - lo) for lo, hi in exon_bounds))
+    S_pad = ((S_ref + pad_coding + 2) // 3) * 3
+    return indel_reconstruct(
+        region_codes, exon_bounds, reverse_strand, pos, kind, del_len,
+        ins_codes, ins_len, alt_code, valid, pad_coding, DNA5.COMPLEMENT,
+        S_pad,
+    )
+
+
+def reconstruct_indel_coding_plain(
+    region_codes: np.ndarray,
+    exon_bounds: np.ndarray,
+    reverse_strand: bool,
+    pos: np.ndarray, kind: np.ndarray, del_len: np.ndarray,
+    ins_codes: np.ndarray, ins_len: np.ndarray, alt_code: np.ndarray,
+    valid: np.ndarray,
+    pad_coding: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy replay that reconstruct_indel_coding_host's native form
+    is held against: the same arguments, the same result."""
     B, K = pos.shape
     A = ins_codes.shape[2]
     L = int(region_codes.shape[0])

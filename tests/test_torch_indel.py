@@ -124,8 +124,9 @@ def _no_native(monkeypatch):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("seed", [5, 6, 7])
 def test_reconstruct_host_matches_jax_and_step(seed, reverse, monkeypatch):
-    """The port's numpy replay against the JAX package's numpy replay (its
-    native branch patched off) and against the port's own step."""
+    """The port's replays, native and numpy, against the JAX package's
+    numpy replay (its native branch patched off) and against the port's
+    own step."""
     _no_native(monkeypatch)
     rng = np.random.default_rng(seed)
     region = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -137,6 +138,10 @@ def test_reconstruct_host_matches_jax_and_step(seed, reverse, monkeypatch):
         region, EXONS, reverse, *args, pad_coding=K * A)
     np.testing.assert_array_equal(t_len, j_len)
     np.testing.assert_array_equal(t_coding, j_coding)
+    p_coding, p_len = tp.reconstruct_indel_coding_plain(
+        region, EXONS, reverse, *args, pad_coding=K * A)
+    np.testing.assert_array_equal(p_len, j_len)
+    np.testing.assert_array_equal(p_coding, j_coding)
     out = tp.make_indel_forward_step(region, EXONS, 0, reverse_strand=reverse,
                                      pad_coding=K * A, device="cpu")(*args)
     np.testing.assert_array_equal(out.coding_len.numpy(), t_len)
@@ -145,7 +150,8 @@ def test_reconstruct_host_matches_jax_and_step(seed, reverse, monkeypatch):
 
 def test_reconstruct_host_random_slots_matches_jax(monkeypatch):
     """Unconstrained random slots (overlapping spans, out-of-buffer
-    writes): the two numpy replays agree entry by entry."""
+    writes): the port's native and numpy replays agree with the JAX
+    package's numpy replay entry by entry."""
     _no_native(monkeypatch)
     rng = np.random.default_rng(17)
     region = rng.integers(0, 4, size=L).astype(np.uint8)
@@ -160,9 +166,10 @@ def test_reconstruct_host_random_slots_matches_jax(monkeypatch):
     for reverse in (False, True):
         args = (region, EXONS, reverse, pos, kind, dlen, icodes, ilen, alt, valid)
         j = jp.reconstruct_indel_coding_host(*args, pad_coding=K * A)
-        t = tp.reconstruct_indel_coding_host(*args, pad_coding=K * A)
-        np.testing.assert_array_equal(t[1], j[1])
-        np.testing.assert_array_equal(t[0], j[0])
+        for t in (tp.reconstruct_indel_coding_host(*args, pad_coding=K * A),
+                  tp.reconstruct_indel_coding_plain(*args, pad_coding=K * A)):
+            np.testing.assert_array_equal(t[1], j[1])
+            np.testing.assert_array_equal(t[0], j[0])
 
 
 @pytest.mark.parametrize("bound", [0, 1, 31, 32, 63, 64, 127, 128, 4000])

@@ -7,7 +7,8 @@ integer, a code or a string.
 
 The JAX package parses a VCF by its native record loop when its native
 library is present and by the streaming Python loop otherwise; the port
-has the streaming loop only, and is held against both."""
+parses by its own native record loop by default and by the streaming loop
+when asked, and each is held against both of the JAX package's."""
 
 import gzip
 import sys
@@ -142,9 +143,10 @@ def test_gaf_path_raises(fixture_files):
 
 @pytest.mark.parametrize("which", ["vcf", "vcf_gz"])
 @pytest.mark.parametrize("j_native", [None, False], ids=["jax_default", "jax_streaming"])
-def test_fixture_population_equal(fixture_files, which, j_native):
+@pytest.mark.parametrize("t_native", [True, False], ids=["port_native", "port_streaming"])
+def test_fixture_population_equal(fixture_files, which, j_native, t_native):
     jpop, jhead, jinfo = j_parse(fixture_files[which], "pop", "PF_DIPLOID", use_native=j_native)
-    tpop, thead, tinfo = t_parse(fixture_files[which], "pop", "PF_DIPLOID")
+    tpop, thead, tinfo = t_parse(fixture_files[which], "pop", "PF_DIPLOID", use_native=t_native)
     assert_same_population(jpop, tpop)
     assert thead.genome_names == jhead.genome_names
     assert sorted(thead.info_fields) == sorted(jhead.info_fields)
@@ -158,10 +160,13 @@ def test_fixture_population_equal(fixture_files, which, j_native):
                 assert tv == jv, (fid, row)
 
 
-@pytest.mark.parametrize("kwargs", [{"use_native": True}, {"checkpoint_path": "ck"}])
-def test_native_and_checkpoint_requests_raise(fixture_files, kwargs):
-    with pytest.raises(NotImplementedError):
-        t_parse(fixture_files["vcf"], "pop", "PF_DIPLOID", **kwargs)
+@pytest.mark.parametrize("parser, kwargs, error", [
+    ("GNOMAD_DIPLOID", {"use_native": True}, ValueError),  # no native mode
+    ("PF_DIPLOID", {"checkpoint_path": "ck"}, NotImplementedError),
+], ids=["kwargs0", "kwargs1"])
+def test_native_and_checkpoint_requests_raise(fixture_files, parser, kwargs, error):
+    with pytest.raises(error):
+        t_parse(fixture_files["vcf"], "pop", parser, **kwargs)
 
 
 def test_fixture_capture_equal(fixture_files):
@@ -180,12 +185,13 @@ def test_fixture_capture_equal(fixture_files):
 
 
 @pytest.mark.parametrize("j_native", [None, False], ids=["jax_default", "jax_streaming"])
-def test_synthetic_genome_and_population_equal(synthetic_files, j_native):
+@pytest.mark.parametrize("t_native", [True, False], ids=["port_native", "port_streaming"])
+def test_synthetic_genome_and_population_equal(synthetic_files, j_native, t_native):
     jp, tp = synthetic_files
     assert_same_genome(JGenome.create_genome_database("syn", jp.fasta, jp.gff3),
                        TGenome.create_genome_database("syn", tp.fasta, tp.gff3))
     jpop, _h, _i = j_parse(jp.vcf, "pop", "PF_DIPLOID", use_native=j_native)
-    tpop, _h, _i = t_parse(tp.vcf, "pop", "PF_DIPLOID")
+    tpop, _h, _i = t_parse(tp.vcf, "pop", "PF_DIPLOID", use_native=t_native)
     assert_same_population(jpop, tpop)
 
 

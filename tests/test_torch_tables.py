@@ -80,6 +80,14 @@ def test_port_runs_with_jax_blocked():
         "from kgl_gene_tpu_torch.analysis import lib_seqmutation as fam\n"
         "from kgl_gene_tpu_torch.genome.features import CodingSequenceValidity as V\n"
         "import kgl_gene_tpu_torch.ops.banded, kgl_gene_tpu_torch.ops.traceback\n"
+        "import kgl_gene_tpu_torch.native, kgl_gene_tpu_torch.variant.columnar\n"
+        "import kgl_gene_tpu_torch.variant.sort, kgl_gene_tpu_torch.stats.fws\n"
+        "import kgl_gene_tpu_torch.stats.frequency\n"
+        "from kgl_gene_tpu_torch.stats import inbreeding as inb\n"
+        "from kgl_gene_tpu_torch.parallel import mesh\n"
+        "d = inb.synthetic_diploid_population(3, 200, [0.0, 0.5, 0.9], seed=1)\n"
+        "assert inb.inbreeding_all(d, device='cpu')['Simple'].shape == (3,)\n"
+        "assert mesh.sharded_allele_counts(d.zygosity, 'cpu').shape == (200,)\n"
         "step, args = entry(device='cpu')\n"
         "out = step(*args)\n"
         "assert out.distance.shape == (8,)\n"
