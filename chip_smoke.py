@@ -46,7 +46,23 @@ set to 0 just before and read just after:
      prints each stage's seconds, the ingest rate, peak host RSS and
      device memory, and each device function's time beside its byte
      bound. These functions are plain PyTorch (no Pallas kernel stands
-     behind them in the JAX package).
+     behind them in the JAX package);
+  5. the Bayesian phylogenetics path (phase 3e, bench.py's bench_phylo
+     shapes): the vmapped heated chains (kgl_gene_tpu_torch.phylo.vmapped,
+     4 chains x 16 taxa x 100,000 sites) against the host Chain, and the
+     product sampler (phylo.mcmc.MCMCSampler, the fused full iteration of
+     phylo.likelihood.CachedPartialsLikelihood, 16 taxa x 300,000 sites)
+     with one chain and with four pipelined heated chains. It fails unless
+     the card's log-likelihoods hold within PHYLO_REL of the port's CPU run
+     and of the float64 host log_likelihood on the initial and final states,
+     the path update within PHYLO_PATH_REL of a full recompute, and one run
+     of each device program (the vmapped iteration, the sweep, the fused
+     dispatch) makes no host synchronisation: the sync debug mode reports
+     none and a sleep kernel enqueued before it is still running when it
+     returns. It
+     prints the rates with their spread, launches a likelihood and an
+     iteration, and each device function's time beside its byte bound
+     (plain PyTorch too: the JAX package runs lax.scan programs there).
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -71,8 +87,9 @@ issue_bound_ms (the same operations against the rate the card issues
 integer operations at). It imports nothing of JAX or of the JAX package.
 
 Output: progress lines, then one JSON line {"device_functions": [...]}
-(phase 3d's device functions: time, launches, byte bound), one
-{"scale": {...}} (phase 3d's stages and checks), one {"kernels": [...]} (the rows of
+(phases 3d's and 3e's device functions: time, launches, byte bound), one
+{"scale": {...}} (phase 3d's stages and checks), one {"phylo": {...}}
+(phase 3e's rates and checks), one {"kernels": [...]} (the rows of
 B1, B2 and B3 also carry their launches in the product path's SNP and
 indel steps and in the band-0 indel step), the card's
 name and power limit from nvidia-smi, and as the last line
@@ -138,6 +155,21 @@ SCALE_SEED, SCALE_CHUNK_ROWS = 11, 20_000  # generate_scale_vcf's defaults, repl
 SCALE_WINDOW = 10_000  # loci of the dense window the four estimators run on
 # Tolerances of tests/test_torch_stats.py: the card against the CPU.
 ESTIMATOR_ATOL = {"Simple": 1e-5, "RitlandLocus": 1e-5, "HallME": 1e-3, "Loglikelihood": 1e-4}
+# The phylogenetics path at bench.py's bench_phylo shapes (bench.py:201-279):
+# 16 taxa; the vmapped chains on 100,000 sites (4 chains, run(200) twice to
+# warm, then three timed windows, the host Chain over 8 iterations as the
+# denominator); the product sampler on 300,000 sites (seed 3, run(3) to warm,
+# three windows of run(12)), once with one chain and once with 4 pipelined
+# heated chains. Its one cut: no 300,000-site host denominator (minutes).
+PHYLO = dict(n_taxa=16, vm_sites=100_000, vm_chains=4, vm_iters=200, host_iters=8,
+             prod_sites=300_000, prod_warm=3, prod_iters=12, heated_chains=4, windows=3)
+# Log-likelihoods of -2e6 to -1e7 on these random alignments, in float32
+# (spacing 0.25 to 1): the card against the port's CPU run and against the
+# float64 host log_likelihood, relative; the path update against a full
+# recompute.
+PHYLO_REL = 1e-5
+PHYLO_PATH_REL = 1e-6
+SYNC_PROBE_CYCLES = 2_000_000_000  # about a second at the H100's 1.98 GHz
 
 
 def log(msg):
@@ -1718,6 +1750,373 @@ def phase_scale(dev, workdir):
     return out, table
 
 
+def count_launches(fn):
+    """(fn's result, the aten operations it ran that launch work on the
+    card: every operation with a CUDA output, not counting views and
+    allocations)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    skip = {"aten.empty.memory_format", "aten.empty_strided.default",
+            "aten._unsafe_view.default", "aten.lift_fresh.default"}
+
+    class Counter(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and str(func) not in skip and any(
+                    isinstance(x, torch.Tensor) and x.is_cuda for x in tree_flatten(out)[0]):
+                Counter.n += 1
+            return out
+
+    with Counter():
+        result = fn()
+    return result, Counter.n
+
+
+def sync_free(label, fn):
+    """fn() behind a sleep kernel of SYNC_PROBE_CYCLES and under
+    torch.cuda.set_sync_debug_mode("error"): raises if fn synchronises (the
+    debug mode's own error), or if the stream has drained by the time fn
+    returns (the host waited for the card by a route the debug mode does
+    not see)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SYNC_PROBE_CYCLES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        result = fn()
+        host_s = time.perf_counter() - t0
+        pending = not torch.cuda.current_stream().query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not pending:
+        raise AssertionError(f"{label}: the stream drained while the host ran it")
+    log(f"  {label}: no host synchronisation (sync debug mode 'error'; enqueued in "
+        f"{host_s * 1e3:.2f} ms behind a sleep kernel still running)")
+    return result
+
+
+def median_spread(samples):
+    """(median, (max - min) / median), bench.py's _median_spread."""
+    med = statistics.median(samples)
+    return med, (max(samples) - min(samples)) / med
+
+
+def rel_gap(got, want):
+    return abs(got - want) / abs(want)
+
+
+def phase_phylo(dev):
+    """Phase 3e: the Bayesian phylogenetics path at bench_phylo's shapes
+    (PHYLO). The vmapped heated chains and the product sampler (the fused
+    full iteration with Larget-Simon and polytomy on, one chain and four
+    pipelined heated chains) on the card: rates with spread, launches a
+    likelihood and an iteration, each device program once behind a sleep
+    kernel under the sync debug mode (sync_free), the card's log-likelihoods against the port's CPU run and
+    the float64 host log_likelihood on the initial and the final states, the
+    path update against a full recompute at 300,000 sites, and each device
+    function timed beside its byte bound. Returns (the phylo line's dict,
+    the device-function rows)."""
+    import random
+
+    import torch
+
+    from kgl_gene_tpu_torch.phylo.likelihood import (
+        CachedPartialsLikelihood, _Topology, _edge_views, _prune, _root_loglike, _upload,
+        log_likelihood)
+    from kgl_gene_tpu_torch.phylo.mcmc import Chain, ChainState, MCMCSampler
+    from kgl_gene_tpu_torch.phylo.model import SubstitutionModel
+    from kgl_gene_tpu_torch.phylo.tree import random_tree
+    from kgl_gene_tpu_torch.phylo.vmapped import VmappedChains
+
+    out, rows = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    n_taxa, windows = PHYLO["n_taxa"], PHYLO["windows"]
+    rng = np.random.default_rng(7)
+    taxa = [f"T{i}" for i in range(n_taxa)]
+    tree = random_tree(taxa, random.Random(7))
+    aln = rng.integers(0, 4, size=(n_taxa, PHYLO["vm_sites"])).astype(np.uint8)
+    tip_bytes = n_taxa * PHYLO["vm_sites"] * 16
+
+    # --- vmapped chains ----------------------------------------------------
+    C, iters = PHYLO["vm_chains"], PHYLO["vm_iters"]
+    chains = VmappedChains(tree, aln, n_chains=C, device=dev)
+    cpu_chains = VmappedChains(tree, aln, n_chains=C, device="cpu")
+
+    def vm_check(label):
+        params = [x.cpu().numpy() for x in chains.params]
+        card = chains._loglike(chains.params).cpu().numpy().astype(np.float64)
+        cpu_chains.set_params(*params)
+        cpu = cpu_chains._loglike(cpu_chains.params).numpy().astype(np.float64)
+        host_tree = tree.copy()
+        for e, length in zip(host_tree.edges(), params[0][0]):
+            e.edge_length = float(length)
+        host = log_likelihood(host_tree, aln, SubstitutionModel(
+            params[2][0].astype(np.float64), params[1][0].astype(np.float64)))
+        gap_cpu = float(np.max(np.abs(card - cpu) / np.abs(cpu)))
+        gap_host = rel_gap(card[0], host)
+        out[f"vm_{label}"] = {"card": card.tolist(), "cpu": cpu.tolist(), "host_f64": host,
+                              "rel_gap_cpu": gap_cpu, "rel_gap_f64": gap_host}
+        log(f"  vmapped {label}: cold chain card {card[0]:.4f}, CPU {cpu[0]:.4f}, float64 "
+            f"host {host:.4f}; relative gaps {gap_cpu:.3g} (CPU, all chains), {gap_host:.3g} "
+            f"(float64); tolerance {PHYLO_REL}")
+        if not (gap_cpu <= PHYLO_REL and gap_host <= PHYLO_REL):
+            raise AssertionError(f"vmapped {label}: the card's log-likelihoods differ")
+
+    vm_check("initial")
+    _ll, out["vm_launches_loglike"] = count_launches(lambda: chains._loglike(chains.params))
+    res, out["vm_launches_run1"] = count_launches(lambda: chains._run(chains.params, 1))
+    sync_free("vmapped _run of one iteration", lambda: chains._run(chains.params, 1))[2].cpu()
+    log(f"  vmapped launches: {out['vm_launches_loglike']} a likelihood, "
+        f"{out['vm_launches_run1']} a _run of one iteration (its first likelihood and draws "
+        "included)")
+    t0 = time.perf_counter()
+    chains.run(iters)
+    chains.run(iters)
+    out["vm_warm_s"] = time.perf_counter() - t0
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        trace = chains.run(iters)
+        rates.append(iters / (time.perf_counter() - t0))
+    if trace.shape != (iters,) or not np.isfinite(trace).all():
+        raise AssertionError("the vmapped trace is not finite")
+    out["vm_iters_per_s"], out["vm_spread"] = median_spread(rates)
+    out["vm_windows_iters_per_s"] = rates
+    vm_check("final")
+    host_chain = Chain(aln, ChainState(tree.copy(), SubstitutionModel(
+        np.ones(6), np.full(4, 0.25), 1.0, 1, 0.0)), rng=random.Random(1),
+        updaters=("branch_length", "tree_length", "state_freq", "exchangeability"),
+        fixed_topology=True)
+    t0 = time.perf_counter()
+    for _ in range(PHYLO["host_iters"]):
+        host_chain.next_step()
+    out["vm_host_iters_per_s"] = PHYLO["host_iters"] / (time.perf_counter() - t0)
+    out["vm_speedup_vs_host"] = out["vm_iters_per_s"] / out["vm_host_iters_per_s"]
+    log(f"  vmapped chains ({C} x {n_taxa} taxa x {PHYLO['vm_sites']} sites): "
+        f"{out['vm_iters_per_s']:.2f} cold-chain iterations/s (windows "
+        + ", ".join(f"{r:.2f}" for r in rates) + f"; spread {out['vm_spread']:.3f}); host "
+        f"Chain {out['vm_host_iters_per_s']:.3f} iterations/s, x{out['vm_speedup_vs_host']:.1f}")
+
+    fn = functools.partial(chains._loglike, chains.params)
+    t0 = time.perf_counter()
+    cpu_chains._loglike(cpu_chains.params)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rows.append({"name": "VmappedChains._loglike", "source": "kgl_gene_tpu_torch/phylo/vmapped.py",
+                 "replaces": "kgl_gene_tpu/phylo/vmapped.py:140 (scan :134)",
+                 "launches": out["vm_launches_loglike"],
+                 "shape": f"{C} chains x {n_taxa} taxa x {PHYLO['vm_sites']} sites",
+                 "ms": time_cuda(fn, 10, windows=3),
+                 "device_ms": time_device([fn], 10, windows=3), "cpu_ms": cpu_ms,
+                 "bound_ms": tip_bytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+    rows.append({"name": "VmappedChains iteration", "source": "kgl_gene_tpu_torch/phylo/vmapped.py",
+                 "replaces": "kgl_gene_tpu/phylo/vmapped.py:146 (scan :239)",
+                 "launches": out["vm_launches_run1"] - out["vm_launches_loglike"],
+                 "shape": rows[-1]["shape"], "ms": 1e3 / out["vm_iters_per_s"],
+                 "device_ms": None, "cpu_ms": None,
+                 "bound_ms": tip_bytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+
+    # --- product sampler ---------------------------------------------------
+    S = PHYLO["prod_sites"]
+    aln_p = rng.integers(0, 4, size=(n_taxa, S)).astype(np.uint8)
+    tree_p = random_tree(taxa, random.Random(11))
+    tip_bytes = n_taxa * S * 16
+
+    def new_model():
+        return SubstitutionModel(np.ones(6), np.full(4, 0.25), 1.0, 1, 0.0)
+
+    np.random.seed(1)
+    sampler = MCMCSampler(aln_p, ChainState(tree_p.copy(), new_model()), n_chains=1, seed=3,
+                          backend="device", device=dev)
+    chain = sampler.cold_chain
+    tips = chain.backend.tips
+
+    def prod_check(label):
+        state = chain.state
+        card = CachedPartialsLikelihood(aln_p, tips=tips).loglike(state.tree, state.model)
+        cpu = CachedPartialsLikelihood(aln_p, device="cpu").loglike(state.tree, state.model)
+        host = log_likelihood(state.tree, aln_p, state.model)
+        gaps = {"rel_gap_cpu": rel_gap(card, cpu), "rel_gap_f64": rel_gap(card, host),
+                "rel_gap_carried": rel_gap(state.log_like, card)}
+        out[f"prod_{label}"] = {"card": card, "cpu": cpu, "host_f64": host,
+                                "carried": state.log_like, **gaps}
+        log(f"  product {label}: card {card:.4f}, CPU {cpu:.4f}, float64 host {host:.4f}, "
+            f"carried by the sampler {state.log_like:.4f}; relative gaps "
+            + ", ".join(f"{k[8:]} {v:.3g}" for k, v in gaps.items())
+            + f"; tolerance {PHYLO_REL}")
+        if not all(v <= PHYLO_REL for v in gaps.values()):
+            raise AssertionError(f"product {label}: the card's log-likelihoods differ")
+
+    prod_check("initial")
+    # the path update against a full recompute, three edges at three depths
+    state = chain.state.copy()
+    topo = _Topology(state.tree)
+    path_gaps = []
+    for slot in (0, len(topo.slot) // 2, len(topo.slot) - 1):
+        be = CachedPartialsLikelihood(aln_p, tips=tips)
+        be.loglike(state.tree, state.model)
+        be.on_accept()
+        node = state.tree.edges()[slot]
+        node.edge_length *= 1.7
+        path = be.loglike(state.tree, state.model, changed_node_index=node.index)
+        full = CachedPartialsLikelihood(aln_p, tips=tips).loglike(state.tree, state.model)
+        path_gaps.append(rel_gap(path, full))
+    out["path_rel_gaps"] = path_gaps
+    log(f"  path update vs full recompute at {S} sites: relative gaps "
+        + ", ".join(f"{g:.3g}" for g in path_gaps) + f"; tolerance {PHYLO_PATH_REL}")
+    if max(path_gaps) > PHYLO_PATH_REL:
+        raise AssertionError("the path update differs from a full recompute")
+
+    backend = chain.backend
+    model, E = chain.state.model, len(chain.state.tree.edges())
+    draws = backend.draw_sweep(model, E)
+    _f, out["launches_sweep"] = count_launches(
+        lambda: backend._sweep_body(chain.state.tree, model, 1.0, draws))
+    _f.wait()
+    sync_free("param sweep body", lambda: backend._sweep_body(
+        chain.state.tree, model, 1.0, draws)).wait()
+    token, out["launches_fused_iteration"] = count_launches(chain.dispatch_full_iteration)
+    chain.collect_full_iteration(token)
+    chain.collect_full_iteration(sync_free("fused iteration dispatch",
+                                           chain.dispatch_full_iteration))
+    log(f"  product launches: {out['launches_sweep']} a sweep (5 likelihoods), "
+        f"{out['launches_fused_iteration']} a fused iteration (8 likelihoods)")
+
+    t0 = time.perf_counter()
+    sampler.run(PHYLO["prod_warm"])
+    out["prod_warm_s"] = time.perf_counter() - t0
+    n = PHYLO["prod_iters"]
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        sampler.run(n)
+        rates.append(n / (time.perf_counter() - t0))
+    out["prod_iters_per_s"], out["prod_spread"] = median_spread(rates)
+    out["prod_windows_iters_per_s"] = rates
+    out["prod_acceptance"] = chain.acceptance_rates()
+    log(f"  product sampler (1 chain, {n_taxa} taxa x {S} sites): {out['prod_iters_per_s']:.2f} "
+        "iterations/s (windows " + ", ".join(f"{r:.2f}" for r in rates)
+        + f"; spread {out['prod_spread']:.3f}); acceptance "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out["prod_acceptance"].items()))
+    prod_check("final")
+
+    H = PHYLO["heated_chains"]
+    np.random.seed(1)
+    heated = MCMCSampler(aln_p, ChainState(tree_p.copy(), new_model()), n_chains=H, seed=3,
+                         backend="device", device=dev)
+    heated.run(PHYLO["prod_warm"])
+    rates = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        heated.run(n)
+        rates.append(H * n / (time.perf_counter() - t0))
+    out["heated_chain_iters_per_s"], out["heated_spread"] = median_spread(rates)
+    out["heated_windows"] = rates
+    if not all(np.isfinite(c.state.log_like) for c in heated.chains):
+        raise AssertionError("a heated chain's log-likelihood is not finite")
+    log(f"  product sampler ({H} pipelined heated chains): "
+        f"{out['heated_chain_iters_per_s']:.2f} chain-iterations/s (windows "
+        + ", ".join(f"{r:.2f}" for r in rates) + f"; spread {out['heated_spread']:.3f}); "
+        f"swaps {heated.swap_accepts}/{heated.swap_attempts}")
+
+    # device functions at 16 x 300,000, timed alone
+    state = chain.state
+    topo = _Topology(state.tree)
+    P = _upload(state.model.transition_matrices(topo.edge_lengths), dev)
+    P_of, TW_of = _edge_views(topo, P)
+    pi = _upload(state.model.frequencies / state.model.frequencies.sum(), dev)
+    rw = _upload(np.ones(1), dev)
+
+    def full_pass():
+        return _root_loglike(_prune(tips, topo, P_of, TW_of)[topo.root], pi, rw, 0.0, None)
+
+    parts = _prune(tips, topo, P_of, TW_of)
+    leaf = next(c for _node, ch in topo.steps for c in ch if c < n_taxa)
+    children = dict(topo.steps)
+    path_nodes, node = [], int(topo.parent[leaf])
+    while node >= 0:
+        path_nodes.append((node, children[node]))
+        node = int(topo.parent[node])
+
+    def path_pass():
+        return _root_loglike(_prune(tips, topo, P_of, TW_of, list(parts), path_nodes)[topo.root],
+                             pi, rw, 0.0, None)
+
+    _r, launches_full = count_launches(full_pass)
+    _r, launches_path = count_launches(path_pass)
+    cpu_be = CachedPartialsLikelihood(aln_p, device="cpu")
+    t0 = time.perf_counter()
+    cpu_be.loglike(state.tree, state.model)
+    cpu_full_ms = (time.perf_counter() - t0) * 1e3
+    cpu_be.on_accept()
+    t0 = time.perf_counter()
+    cpu_be.loglike(state.tree, state.model, changed_node_index=leaf)
+    cpu_path_ms = (time.perf_counter() - t0) * 1e3
+    # the path's inputs: the partials (tip or cached, 16 bytes a site) of
+    # its nodes' children that are not themselves on the path
+    path_in = sum(16 * S for _n, ch in path_nodes for c in ch if c not in dict(path_nodes))
+    rows.append({"name": "CachedPartialsLikelihood full", "source":
+                 "kgl_gene_tpu_torch/phylo/likelihood.py",
+                 "replaces": "kgl_gene_tpu/phylo/likelihood.py:270 (scan :305)",
+                 "launches": launches_full, "shape": f"{n_taxa} taxa x {S} sites",
+                 "ms": time_cuda(full_pass, 10, windows=3),
+                 "device_ms": time_device([full_pass], 10, windows=3), "cpu_ms": cpu_full_ms,
+                 "bound_ms": (tip_bytes + len(topo.steps) * S * 16) / MEM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes"})
+    rows.append({"name": "CachedPartialsLikelihood path", "source":
+                 "kgl_gene_tpu_torch/phylo/likelihood.py",
+                 "replaces": "kgl_gene_tpu/phylo/likelihood.py:317 (scan :348)",
+                 "launches": launches_path,
+                 "shape": f"{n_taxa} taxa x {S} sites, a path of {len(path_nodes)} nodes",
+                 "ms": time_cuda(path_pass, 10, windows=3),
+                 "device_ms": time_device([path_pass], 10, windows=3), "cpu_ms": cpu_path_ms,
+                 "bound_ms": (path_in + len(path_nodes) * S * 16) / MEM_BYTES_PER_S * 1e3,
+                 "bound_by": "bytes"})
+    draws = backend.draw_sweep(state.model, len(state.tree.edges()))
+    sweep = functools.partial(backend._sweep_body, state.tree, state.model, 1.0, draws)
+    cpu_be = CachedPartialsLikelihood(aln_p, device="cpu")
+    t0 = time.perf_counter()
+    cpu_be._sweep_body(state.tree, state.model, 1.0, draws).wait()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rows.append({"name": "param_sweep body", "source": "kgl_gene_tpu_torch/phylo/likelihood.py",
+                 "replaces": "kgl_gene_tpu/phylo/likelihood.py:493 (scan :558)",
+                 "launches": out["launches_sweep"], "shape": f"{n_taxa} taxa x {S} sites",
+                 "ms": time_cuda(sweep, 5, windows=3), "device_ms": None, "cpu_ms": cpu_ms,
+                 "bound_ms": tip_bytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+    prep = chain._prepare_full_iteration()
+    (p1, perm1, ls_slot, h1, u1, pa, permA, newA, vlenA, hpA, u2a, pb, permB, newB, vlenB,
+     hpB, u2b, _ra, _rb) = prep
+    fdraws = backend.draw_sweep(state.model, len(state.tree.edges()))
+    fdraws.u = np.append(fdraws.u, u1)
+    fargs = (state.tree, state.model, 1.0, fdraws, p1.tree, perm1, ls_slot, h1,
+             pa[0].tree if pa else None, permA, newA, vlenA, hpA, u2a,
+             pb[0].tree if pb else None, permB, newB, vlenB, hpB, u2b)
+    t0 = time.perf_counter()
+    cpu_be._fiter_body(*fargs)[0].wait()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    rows.append({"name": "full_iteration body", "source": "kgl_gene_tpu_torch/phylo/likelihood.py",
+                 "replaces": "kgl_gene_tpu/phylo/likelihood.py:794 (scan :866)",
+                 "launches": out["launches_fused_iteration"], "shape": f"{n_taxa} taxa x {S} sites",
+                 "ms": time_cuda(lambda: backend._fiter_body(*fargs), 5, windows=3),
+                 "device_ms": None, "cpu_ms": cpu_ms,
+                 "bound_ms": tip_bytes / MEM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+    for row in rows:
+        row["x_bound"] = row["ms"] / row["bound_ms"]
+        dev_ms = "" if row["device_ms"] is None else f", device {row['device_ms']:.4f} ms"
+        cpu = "" if row["cpu_ms"] is None else f", CPU {row['cpu_ms']:.3f} ms"
+        log(f"  {row['name']} ({row['shape']}): {row['ms']:.4f} ms host-inclusive{dev_ms}, "
+            f"{row['launches']} launches, bound {row['bound_ms']:.4f} ms (bytes), "
+            f"x{row['x_bound']:.0f}{cpu}")
+    out["cuda_max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  device memory at most {out['cuda_max_memory_gb']:.3f} GB")
+    return out, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1806,6 +2205,14 @@ def main() -> int:
         scale["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3d: {scale['phase_s']:.1f} s")
 
+        phase = "main path: phylogenetics"
+        log(f"phase 3e: {phase}")
+        t0 = time.perf_counter()
+        phylo, phylo_functions = phase_phylo(dev)
+        phylo["phase_s"] = time.perf_counter() - t0
+        device_functions += phylo_functions
+        log(f"  phase 3e: {phylo['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -1847,6 +2254,7 @@ def main() -> int:
         })
     print(json.dumps({"device_functions": device_functions}))
     print(json.dumps({"scale": scale}))
+    print(json.dumps({"phylo": phylo}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

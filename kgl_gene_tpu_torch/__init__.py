@@ -14,7 +14,10 @@ and records, analysis/lib_seqmutation.py MutateGenes) with the native C++
 VCF ingest (native/, built by g++ on first use), and the population
 statistics (variant/columnar.py, stats/, parallel/mesh.py: allele
 frequencies, FWS, the inbreeding estimators on the device and inbreeding
-streamed over a population too large to densify), with hand-written CUDA
+streamed over a population too large to densify), the Bayesian
+phylogenetics application (phylo/: the pruning likelihoods of the product
+sampler and of the vmapped heated chains on the device, the kpl app
+phylo/strom.py), with hand-written CUDA
 kernels for codon translation, exact Levenshtein by full-width bit
 vectors, banded Myers and the banded row DP with its traceback codes
 (csrc/, built by kernels/).

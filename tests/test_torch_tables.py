@@ -85,9 +85,19 @@ def test_port_runs_with_jax_blocked():
         "import kgl_gene_tpu_torch.stats.frequency\n"
         "from kgl_gene_tpu_torch.stats import inbreeding as inb\n"
         "from kgl_gene_tpu_torch.parallel import mesh\n"
+        "import random\n"
+        "import numpy as np\n"
+        "from kgl_gene_tpu_torch.phylo import strom, partition, summary, codon\n"
+        "from kgl_gene_tpu_torch.phylo import mcmc, tree as ptree, vmapped\n"
         "d = inb.synthetic_diploid_population(3, 200, [0.0, 0.5, 0.9], seed=1)\n"
         "assert inb.inbreeding_all(d, device='cpu')['Simple'].shape == (3,)\n"
         "assert mesh.sharded_allele_counts(d.zygosity, 'cpu').shape == (200,)\n"
+        "tr = ptree.random_tree(['a', 'b', 'c', 'd'], random.Random(1))\n"
+        "aln = np.random.default_rng(1).integers(0, 4, (4, 30)).astype(np.uint8)\n"
+        "s = mcmc.MCMCSampler(aln, mcmc.ChainState(tr, mcmc.SubstitutionModel()),\n"
+        "                     n_chains=2, device='cpu')\n"
+        "assert len(s.run(4, sample_freq=2)) == 2\n"
+        "assert vmapped.VmappedChains(tr, aln, 2, device='cpu').run(3).shape == (3,)\n"
         "step, args = entry(device='cpu')\n"
         "out = step(*args)\n"
         "assert out.distance.shape == (8,)\n"
