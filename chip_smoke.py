@@ -5,9 +5,9 @@
 
 Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
 host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
-kernel against its plain PyTorch version on the card (exact integer
-equality), and drives four paths, the first three with the launch counts
-set to 0 just before and read just after:
+kernel against its plain PyTorch version on the card (exact equality),
+and drives six paths, each with the launch counts set to 0 just before
+and read just after where it launches a kernel:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
      in five configurations, every output held against the plain forward
@@ -62,7 +62,29 @@ set to 0 just before and read just after:
      returns. It
      prints the rates with their spread, launches a likelihood and an
      iteration, and each device function's time beside its byte bound
-     (plain PyTorch too: the JAX package runs lax.scan programs there).
+     (plain PyTorch too: the JAX package runs lax.scan programs there);
+  6. the ontology (phase 3f): the MICA kernel (csrc/mica.cu) against
+     mica_plain on seeded ancestor lists (K = 64 and 192 ascending, K = 100
+     in IC order, n = 1 and 257, two row sets, K = 1,000), then a seeded
+     OBO of GO's size (write_go_obo: 43,000 terms in GO's three namespaces,
+     depth >= 15; a synthetic shape, not checked against a GO release) and
+     a GAF of 5,300 genes (write_go_gaf) through
+     parse_go_file, GoGraph, TermAnnotation.from_gaf_file,
+     InformationContent, ancestor_lists and lin_matrix_device /
+     mica_matrix_device over the annotated biological_process terms (at
+     most 8,192; K >= 192). It fails unless the kernel launched, its matrix
+     equals mica_plain's on the card bit for bit (a 2,048-row block when
+     the whole would take the plain version over 60 s), lin_matrix_device
+     on 128 terms equals its CPU run and lies within 1e-6 of the host
+     SimilarityLin, and OntologyDatabase on the full OBO with the GAF cut
+     to 300 genes passes self_test and gives a 32-gene matrix. It prints
+     the host stages, the kernel's time (CUDA events and a graph replay)
+     beside its byte and merge issue bounds (the merge steps each pair's
+     two real lists need, counted by mica_work, at MICA_STEP_OPS
+     instructions) and the design's own count (a warp's lane slots at the
+     merge loop's MICA_MERGE_OPS), the plain version's seconds, peak
+     device memory and the generated ontology's shape (edges by relation,
+     depth, ancestors a term, annotated BP terms).
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -89,9 +111,12 @@ integer operations at). It imports nothing of JAX or of the JAX package.
 Output: progress lines, then one JSON line {"device_functions": [...]}
 (phases 3d's and 3e's device functions: time, launches, byte bound), one
 {"scale": {...}} (phase 3d's stages and checks), one {"phylo": {...}}
-(phase 3e's rates and checks), one {"kernels": [...]} (the rows of
-B1, B2 and B3 also carry their launches in the product path's SNP and
-indel steps and in the band-0 indel step), the card's
+(phase 3e's rates and checks), one {"ontology": {...}} (phase 3f's stages,
+sizes, checks and the MICA kernel's times and bounds), one {"kernels":
+[...]} of eight rows (the rows of B1, B2 and B3 also carry their launches
+in the product path's SNP and indel steps and in the band-0 indel step;
+the mica row's bound_ms is the larger of its byte floor and its merge
+issue floor, and it carries design_issue_ms), the card's
 name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -170,6 +195,43 @@ PHYLO = dict(n_taxa=16, vm_sites=100_000, vm_chains=4, vm_iters=200, host_iters=
 PHYLO_REL = 1e-5
 PHYLO_PATH_REL = 1e-6
 SYNC_PROBE_CYCLES = 2_000_000_000  # about a second at the H100's 1.98 GHz
+# Phase 3f, a synthetic ontology of GO's size: GO's three root ids and
+# 43,000 terms (28,000 BP, 11,000 MF, 4,000 CC; about GO's active term
+# count, not checked against a GO release), annotated for the ~5,300 genes
+# of P. falciparum 3D7 (Gardner et al., Nature 419:498-511, 2002). The
+# shape has no source: neither a go-basic.obo nor a Pf3D7 GAF is in the
+# repository to measure it from. GO_PARENTS, GO_RECENT and GO_PART_OF
+# follow the outline of 1-3 parents among a namespace's earlier terms,
+# drawn towards the recent ones, about a fifth of the edges part_of, with
+# values chosen so that the DAG reaches depth 15 and a list longer than
+# 128 ancestors; GO_ASPECTS, GO_ZIPF, GO_NOT and the 1-12 annotations a
+# gene are chosen likewise. They set the ancestor lists' lengths and the
+# number of annotated BP terms, so the times of this phase are those of
+# this shape, not of GO's.
+GO_NAMESPACES = (("biological_process", "GO:0008150", 28_000, "P"),
+                 ("molecular_function", "GO:0003674", 11_000, "F"),
+                 ("cellular_component", "GO:0005575", 4_000, "C"))
+GO_PARENTS = (0.8, 0.15, 0.05)  # P(1, 2 or 3 parents)
+GO_RECENT = 1.3  # a parent lies floor(t * u ** GO_RECENT) terms before term t
+GO_PART_OF = 0.5  # share of second and third parents that are part_of: ~1/5 of edges
+GO_GENES = 5_300
+GO_ASPECTS = (0.5, 0.3, 0.2)  # an annotation's namespace: BP, MF, CC
+GO_ZIPF = 0.7  # term rank exponent of the annotations inside a namespace
+GO_NOT = 0.02
+GO_MAX_TERMS = 8_192  # annotated BP terms the device matrix covers
+GO_HOST_TERMS = 128
+GO_DB_GENES = 300  # the one cut: OntologyDatabase's host cache is O(n^2 terms) numpy
+GO_DB_MATRIX = 32
+MICA_PLAIN_LIMIT_S = 60.0  # above it the plain version holds a 2,048-row block
+# The fewest instructions a merge step needs (two loads, a compare, two
+# advances, the max-min): the price of a step in the mica bound.
+MICA_STEP_OPS = 6
+# Instructions of one step of the kernel's merge loop (two 8-byte shared
+# loads, three compares, two selects, four pointer adds, the predicated
+# max-min, the loop test), as ptxas compiled mica_kernel<16> for sm_90a
+# (cuobjdump -sass of the library): the price in the design's own count.
+MICA_MERGE_OPS = 16
+MICA_TILE = 16
 
 
 def log(msg):
@@ -2117,6 +2179,374 @@ def phase_phylo(dev):
     return out, rows
 
 
+def write_go_obo(path, seed=SEED):
+    """A seeded OBO of GO's size and namespaces (GO_NAMESPACES), of a
+    synthetic shape (no source; see GO_PARENTS): each non-root term has
+    1-3 parents (GO_PARENTS) among the earlier terms of its namespace,
+    drawn towards the most recent ones (GO_RECENT), the first an is_a and
+    each other a part_of with probability GO_PART_OF. Returns the term ids
+    by namespace, the root first."""
+    rng = np.random.default_rng(seed)
+    lines = ["format-version: 1.2", "ontology: go", ""]
+    terms = {}
+    next_id = 10_000  # above every root id
+    for namespace, root, size, _aspect in GO_NAMESPACES:
+        ids = [root] + [f"GO:{next_id + k:07d}" for k in range(size - 1)]
+        next_id += size - 1
+        n_par = rng.choice(len(GO_PARENTS), size=size, p=GO_PARENTS) + 1
+        for t, tid in enumerate(ids):
+            lines += ["[Term]", f"id: {tid}", f"name: {namespace} term {t}",
+                      f"namespace: {namespace}"]
+            if t:
+                back = np.floor(t * rng.random(min(int(n_par[t]), t)) ** GO_RECENT)
+                parents = np.unique(t - 1 - np.minimum(back.astype(np.int64), t - 1))
+                for m, p in enumerate(parents):
+                    if m and rng.random() < GO_PART_OF:
+                        lines.append(f"relationship: part_of {ids[p]} ! {namespace} term {p}")
+                    else:
+                        lines.append(f"is_a: {ids[p]} ! {namespace} term {p}")
+            lines.append("")
+        terms[namespace] = ids
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return terms
+
+
+def write_go_gaf(path, terms, seed=SEED):
+    """A seeded GAF 2.2 of GO_GENES genes over write_go_obo's terms: 1-12
+    annotations a gene, the namespace by GO_ASPECTS, the term by a Zipf
+    skew (GO_ZIPF) over a seeded order of the namespace's non-root terms,
+    a share GO_NOT of them NOT-qualified. Returns the gene ids in order."""
+    rng = np.random.default_rng(seed + 1)
+    pools = []
+    for namespace, _root, _size, aspect in GO_NAMESPACES:
+        pool = np.array(terms[namespace][1:])
+        rng.shuffle(pool)
+        weight = 1.0 / np.arange(1, len(pool) + 1) ** GO_ZIPF
+        pools.append((aspect, pool, weight / weight.sum()))
+    per_gene = rng.integers(1, 13, size=GO_GENES)
+    total = int(per_gene.sum())
+    space = rng.choice(len(pools), size=total, p=GO_ASPECTS)
+    picks = np.empty(total, dtype=object)
+    for code, (_aspect, pool, weight) in enumerate(pools):
+        sel = space == code
+        picks[sel] = pool[rng.choice(len(pool), size=int(sel.sum()), p=weight)]
+    negated = rng.random(total) < GO_NOT
+    evidence = rng.choice(["IEA", "IDA", "ISS", "IBA", "TAS"], size=total)
+    genes = [f"PF3D7_{g:07d}" for g in range(GO_GENES)]
+    lines = ["!gaf-version: 2.2"]
+    for k, g in enumerate(np.repeat(np.arange(GO_GENES), per_gene)):
+        gene = genes[g]
+        lines.append("\t".join([
+            "PlasmoDB", gene, gene, "NOT" if negated[k] else "", picks[k], "GO_REF:0000002",
+            evidence[k], "", pools[space[k]][0], f"{gene} protein", "", "protein",
+            "taxon:36329", "20240101", "PlasmoDB", "", ""]))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return genes
+
+
+def same_floats(name, got, want):
+    """max |got - want| over float tensors; raises unless every value is
+    equal (a selection of inputs: bit for bit)."""
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch_equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} entries differ, max abs err {err}")
+    log(f"  {name}: equal ({got.numel()} values)")
+    return err
+
+
+def torch_equal(a, b):
+    import torch
+
+    return bool(torch.equal(a, b))
+
+
+def mica_cases(dev, errs):
+    """The MICA kernel against mica_plain on seeded ancestor lists: sorted
+    rows at K = 64 and 192, IC-ordered rows at K = 100, one row, 257 rows,
+    two different row sets (K 64 and 192), and K = 1,000 (a smaller tile)."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.similarity import mica, mica_plain
+
+    rng = np.random.default_rng(SEED + 10)
+
+    def lists(n, K, ic_order=False):
+        ids = np.full((n, K), -1, np.int32)
+        ic = np.zeros((n, K), np.float32)
+        for r in range(n):
+            L = int(rng.integers(0, K + 1))
+            row = rng.choice(3 * K, L, replace=False).astype(np.int32)
+            val = (rng.random(L) * 8).astype(np.float32)
+            order = np.argsort(val)[::-1] if ic_order else np.argsort(row)
+            ids[r, :L], ic[r, :L] = row[order], val[order]
+        return torch.as_tensor(ids, device=dev), torch.as_tensor(ic, device=dev)
+
+    for label, n, K, ic_order in (("K = 64, sorted", 300, 64, False),
+                                  ("K = 192, sorted", 300, 192, False),
+                                  ("K = 100, IC order", 300, 100, True),
+                                  ("n = 1", 1, 64, False), ("n = 257", 257, 192, False),
+                                  ("K = 1,000", 40, 1000, True)):
+        ids, ic = lists(n, K, ic_order)
+        got = mica(ids, ic)
+        torch.cuda.synchronize()
+        errs["mica"] = max(errs["mica"], same_floats(f"mica {label}, n = {n}",
+                                                     got, mica_plain(ids, ic, ids, ic)))
+    ids_i, ic_i = lists(200, 64)
+    ids_j, ic_j = lists(333, 192, ic_order=True)
+    got = mica(ids_i, ic_i, ids_j, ic_j)
+    torch.cuda.synchronize()
+    errs["mica"] = max(errs["mica"], same_floats(
+        "mica i != j (200 x 64 against 333 x 192)", got, mica_plain(ids_i, ic_i, ids_j, ic_j)))
+
+
+def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
+    """(merge steps of the least work, lane slots of the kernel's merge)
+    for ancestor_lists' ids (-1 pads, any order), counted on `dev` in
+    blocks of `rows` rows. A merge of two id-sorted lists ends with the
+    list whose last id m is smaller, so a pair takes #ids_i <= m + #ids_j
+    <= m - |common| steps, a match moving both; the least work merges each
+    unordered pair once. The kernel runs the upper triangle of tile x tile
+    blocks; a warp holds 32 // tile rows i against tile rows j (tile >= 8)
+    and issues for its 32 lanes as long as its longest pair."""
+    import torch
+
+    t = torch.as_tensor(ids, device=dev).long()
+    n = t.shape[0]
+    valid = t >= 0
+    key = t.masked_fill(~valid, torch.iinfo(torch.int64).max).sort(1).values
+    lens = valid.sum(1)
+    top = key.gather(1, (lens - 1).clamp(min=0)[:, None])[:, 0].masked_fill(lens == 0, -1)
+    uniq, col = torch.unique(t[valid], return_inverse=True)
+    member = torch.zeros(n, len(uniq), device=dev)
+    member[valid.nonzero()[:, 0], col] = 1.0
+    nt, lanes = -(-n // tile), 32 // tile
+    jj, tj = torch.arange(n, device=dev), torch.arange(nt, device=dev)
+    rows = max(tile, rows // tile * tile)
+    least = slots = 0
+    for i0 in range(0, n, rows):
+        i1 = min(n, i0 + rows)
+        m = torch.minimum(top[i0:i1, None], top[None, :])
+        steps = (torch.searchsorted(key[i0:i1], m, right=True)
+                 + torch.searchsorted(key, m.T.contiguous(), right=True).T
+                 - (member[i0:i1] @ member.T).round().long())
+        least += int(steps.masked_fill(jj[None] < torch.arange(i0, i1, device=dev)[:, None],
+                                       0).sum())
+        pad = torch.zeros(-(-(i1 - i0) // tile) * tile, nt * tile, dtype=torch.long,
+                          device=dev)
+        pad[: i1 - i0, :n] = steps
+        warp = pad.view(-1, tile // lanes, lanes, nt, tile).amax(dim=(2, 4)).sum(1)
+        ti = torch.arange(i0 // tile, i0 // tile + len(warp), device=dev)
+        slots += 32 * int(warp.masked_fill(tj[None] < ti[:, None], 0).sum())
+    return float(least), float(slots)
+
+
+def phase_ontology(dev, workdir, errs):
+    """Phase 3f: GAF annotation, the GO stack and the device MICA / Lin at
+    GO's term count, on write_go_obo's synthetic shape. Returns (the ontology line's dict, the mica kernel row, the
+    kernel's launches on the path)."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.ontology.annotation import TermAnnotation
+    from kgl_gene_tpu_torch.ontology.database import OntologyDatabase
+    from kgl_gene_tpu_torch.ontology.graph import GoGraph
+    from kgl_gene_tpu_torch.ontology.information import InformationContent
+    from kgl_gene_tpu_torch.ontology.obo import parse_go_file
+    from kgl_gene_tpu_torch.ontology.similarity import SimilarityLin
+    from kgl_gene_tpu_torch.ops.similarity import (
+        ancestor_lists, lin_matrix_device, mica, mica_matrix_device, mica_plain,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    mica_cases(dev, errs)
+    out = {}
+    obo = os.path.join(workdir, "go.obo")
+    gaf = os.path.join(workdir, "pf3d7.gaf")
+    t0 = time.perf_counter()
+    terms = write_go_obo(obo)
+    genes = write_go_gaf(gaf, terms)
+    out["generate_s"] = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    records = parse_go_file(obo)
+    out["parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = GoGraph(records)
+    anc = graph.ancestor_bitsets()
+    out["closure_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    annotation = TermAnnotation.from_gaf_file(gaf, graph=graph)
+    out["annotation_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info = InformationContent(graph, annotation)
+    out["ic_s"] = time.perf_counter() - t0
+    bp = annotation.all_terms("biological_process")[:GO_MAX_TERMS]
+    idxs = np.array([graph.term_index(t) for t in bp])
+    t0 = time.perf_counter()
+    ids, vals = ancestor_lists(info, idxs)
+    out["ancestor_lists_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lin = lin_matrix_device(info, bp, device=dev)
+    out["lin_matrix_device_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mica_d = mica_matrix_device(info, idxs, device=dev)
+    out["mica_matrix_device_s"] = time.perf_counter() - t0
+    path_launches = kernels.LAUNCHES["mica"]
+    n, K = ids.shape
+    lens = (ids >= 0).sum(1)
+    anc_counts = np.array([int(np.unpackbits(r.view(np.uint8)).sum()) for r in anc])
+    out.update(shape_source="synthetic (write_go_obo, write_go_gaf); not checked against a "
+                            "GO release or a Pf3D7 GAF",
+               terms=len(graph), edges=int(sum(len(r.relations) for r in records)),
+               part_of=int(sum(rel == "part_of" for r in records for rel, _t in r.relations)),
+               max_depth=int(graph.depth_map().max()),
+               longest_ancestors_all=int(anc_counts.max()),
+               mean_ancestors_all=float(anc_counts.mean()),
+               genes=len(annotation.all_genes()), gaf_genes=len(genes),
+               annotated_bp_terms=len(annotation.all_terms("biological_process")),
+               n=n, K=K, mean_ancestors=float(lens.mean()), longest_ancestors=int(lens.max()),
+               launches_mica=path_launches)
+    log(f"  {out['terms']} terms ({out['edges']} edges, {out['part_of']} part_of, depth "
+        f"{out['max_depth']}, {out['mean_ancestors_all']:.1f} ancestors a term, at most "
+        f"{out['longest_ancestors_all']}), {out['genes']} annotated genes of {out['gaf_genes']}; "
+        f"n = {n} BP terms of {out['annotated_bp_terms']}, K = {K} (longest list "
+        f"{out['longest_ancestors']}, mean {out['mean_ancestors']:.1f}); mica launches "
+        f"{path_launches}")
+    for key in ("generate_s", "parse_s", "closure_s", "annotation_s", "ic_s",
+                "ancestor_lists_s", "lin_matrix_device_s", "mica_matrix_device_s"):
+        log(f"  {key} {out[key]:.3f}")
+    if path_launches < 1:
+        raise AssertionError("the mica kernel never launched on the ontology path")
+    if out["max_depth"] < 15 or K < 192:
+        raise AssertionError("the generated ontology is shallower or narrower than asked")
+    if not (np.isfinite(lin).all() and lin.min() >= 0.0 and lin.max() <= 1.0
+            and np.array_equal(lin, lin.T)):
+        raise AssertionError("lin_matrix_device: values outside [0, 1] or not symmetric")
+
+    # The kernel's matrix against mica_plain on the same card tensors.
+    ids_t = torch.as_tensor(ids, device=dev)
+    ic_t = torch.as_tensor(vals, device=dev)
+    got = mica(ids_t, ic_t)
+    if not np.array_equal(got.cpu().numpy().astype(np.float64), mica_d):
+        raise AssertionError("mica_matrix_device differs from the kernel's matrix")
+    block = min(n, 2048)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = mica_plain(ids_t[:block], ic_t[:block], ids_t, ic_t)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    errs["mica"] = max(errs["mica"], same_floats(
+        f"mica at n = {n}, K = {K}, rows 0-{block - 1}", got[:block], want))
+    del want
+    rows_held = block
+    if block < n and plain_s * n / block <= MICA_PLAIN_LIMIT_S:
+        t0 = time.perf_counter()
+        want = mica_plain(ids_t[block:], ic_t[block:], ids_t, ic_t)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        errs["mica"] = max(errs["mica"], same_floats(
+            f"mica at n = {n}, K = {K}, rows {block}-{n - 1}", got[block:], want))
+        del want
+        rows_held = n
+    out.update(plain_rows_held=rows_held, plain_s=plain_s)
+    log(f"  mica_plain on the card: {rows_held} x {n} rows in {plain_s:.2f} s"
+        + ("" if rows_held == n else f" (the whole matrix would take over "
+           f"{MICA_PLAIN_LIMIT_S:.0f} s: the first {rows_held} rows held)"))
+    del got
+
+    # Against the CPU run and the host path on 128 terms.
+    sub = bp[:GO_HOST_TERMS]
+    card = lin_matrix_device(info, sub, device=dev)
+    cpu = lin_matrix_device(info, sub, device="cpu")
+    if not np.array_equal(card, cpu):
+        raise AssertionError("lin_matrix_device: the card differs from the CPU run")
+    t0 = time.perf_counter()
+    host = SimilarityLin(info).similarity_matrix(sub)
+    out["host_lin_128_s"] = time.perf_counter() - t0
+    out["lin_vs_host_max_abs"] = float(np.abs(card - host).max())
+    log(f"  lin_matrix_device on {len(sub)} terms: card = CPU run; host path in "
+        f"{out['host_lin_128_s']:.3f} s, max |card - host| {out['lin_vs_host_max_abs']:.3e}")
+    if out["lin_vs_host_max_abs"] > 1e-6:
+        raise AssertionError("lin_matrix_device is more than 1e-6 from the host path")
+
+    # OntologyDatabase on the full OBO with the GAF cut to GO_DB_GENES genes.
+    keep = set(genes[:GO_DB_GENES])
+    gaf_cut = os.path.join(workdir, "pf3d7_cut.gaf")
+    with open(gaf) as src, open(gaf_cut, "w") as dst:
+        for line in src:
+            if line.startswith("!") or line.split("\t", 2)[1] in keep:
+                dst.write(line)
+    t0 = time.perf_counter()
+    db = OntologyDatabase("Pf3D7", obo, gaf_cut)
+    if not db.self_test():
+        raise AssertionError("OntologyDatabase.self_test failed")
+    sample = db.annotation.all_genes()[:GO_DB_MATRIX]
+    gm = db.gene_similarity_matrix(sample)
+    out["database_s"] = time.perf_counter() - t0
+    out["database_cache_terms"] = db.similarity_cache("biological_process").term_count()
+    if gm.shape != (len(sample), len(sample)) or not np.isfinite(gm).all() \
+            or not np.allclose(gm, gm.T):
+        raise AssertionError("gene_similarity_matrix: bad shape, values or symmetry")
+    log(f"  OntologyDatabase ({GO_DB_GENES} genes, the one cut): self_test ok, "
+        f"{len(sample)} x {len(sample)} gene matrix over a cache of "
+        f"{out['database_cache_terms']} BP terms in {out['database_s']:.2f} s")
+
+    # Times of the kernel at the path's shape.
+    call = functools.partial(mica, ids_t, ic_t)
+    ms = time_cuda(call, 5, windows=3)
+    device_ms = time_device([call], 5, windows=3)
+    least, slots = mica_work(ids, dev)
+    issue_rate = int_issue_rate()
+    byte_ms = (ids.nbytes + vals.nbytes + 4 * n * n) / MEM_BYTES_PER_S * 1e3
+    issue_ms = least * MICA_STEP_OPS / issue_rate * 1e3
+    out.update(kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain_s * 1e3,
+               bytes_bound_ms=byte_ms, merge_issue_bound_ms=issue_ms, merge_steps=least,
+               design_merge_lane_slots=slots,
+               design_issue_ms=slots * MICA_MERGE_OPS / issue_rate * 1e3,
+               cuda_max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  mica kernel n = {n}, K = {K}: {ms:.4f} ms host-inclusive, device {device_ms:.4f} ms; "
+        f"bounds: bytes {byte_ms:.4f} ms, merge issue {issue_ms:.4f} ms ({least:.4g} steps x "
+        f"{MICA_STEP_OPS}); the design's count {out['design_issue_ms']:.4f} ms ({slots:.4g} "
+        f"lane slots x {MICA_MERGE_OPS}); device memory at most "
+        f"{out['cuda_max_memory_gb']:.3f} GB")
+    # Rows out of id order at the same scale: lists cut to the top 64 by
+    # IC, each cut row in descending IC order, sorted by the wrapper.
+    cut_ids, cut_vals = ancestor_lists(info, idxs, max_ancestors=64)
+    cut_t = (torch.as_tensor(cut_ids, device=dev), torch.as_tensor(cut_vals, device=dev))
+    rows_cut = min(n, 1024)
+    got = mica(*cut_t)
+    errs["mica"] = max(errs["mica"], same_floats(
+        f"mica truncated to 64 ancestors, rows 0-{rows_cut - 1}", got[:rows_cut],
+        mica_plain(cut_t[0][:rows_cut], cut_t[1][:rows_cut], *cut_t)))
+    del got
+    _least, cut_slots = mica_work(cut_ids, dev)
+    out.update(cut64_kernel_ms=time_cuda(functools.partial(mica, *cut_t), 5, windows=3),
+               cut64_rows_out_of_order=int(((np.diff(cut_ids, axis=1) <= 0)
+                                            & (cut_ids[:, 1:] >= 0)).any(1).sum()),
+               cut64_design_issue_ms=cut_slots * MICA_MERGE_OPS / issue_rate * 1e3)
+    log(f"  mica kernel on the lists cut to 64 ({out['cut64_rows_out_of_order']} rows out of "
+        f"id order): {out['cut64_kernel_ms']:.4f} ms host-inclusive, the design's count "
+        f"{out['cut64_design_issue_ms']:.4f} ms")
+    row = {"name": "mica", "route": "cuda", "source": "kgl_gene_tpu_torch/csrc/mica.cu",
+           "replaces": "kgl_gene_tpu/ops/similarity.py:67 (_mica_tile; _mica_tile_chunked :77, "
+                       "fori_loop :99)",
+           "shape": f"n = {n}, K = {K}", "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_s * 1e3, "plain_rows": rows_held,
+           "bound_ms": max(byte_ms, issue_ms),
+           "bound_by": "operations" if issue_ms >= byte_ms else "bytes",
+           "library_ms": None, "int_ops": least * MICA_STEP_OPS,
+           "design_issue_ms": out["design_issue_ms"]}
+    return out, row, path_launches
+
+
+
 def main() -> int:
     try:
         import torch
@@ -2136,7 +2566,7 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
-                          "myers_pool", "walk"), 0)
+                          "myers_pool", "walk", "mica"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -2213,11 +2643,20 @@ def main() -> int:
         device_functions += phylo_functions
         log(f"  phase 3e: {phylo['phase_s']:.1f} s")
 
+        phase = "main path: ontology"
+        log(f"phase 3f: {phase}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            ontology, mica_row, launches["mica"] = phase_ontology(dev, workdir, errs)
+        ontology["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3f: {ontology['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
         rows = phase_times(dev, steps, inputs, configs, errs)
         rows += phase_family_times(dev, records, ref, seqs, lens, matrix, errs)
+        rows.append(mica_row)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -2255,6 +2694,7 @@ def main() -> int:
     print(json.dumps({"device_functions": device_functions}))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"phylo": phylo}))
+    print(json.dumps({"ontology": ontology}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -17,10 +17,13 @@ frequencies, FWS, the inbreeding estimators on the device and inbreeding
 streamed over a population too large to densify), the Bayesian
 phylogenetics application (phylo/: the pruning likelihoods of the product
 sampler and of the vmapped heated chains on the device, the kpl app
-phylo/strom.py), with hand-written CUDA
+phylo/strom.py), and the GO ontology (io/gaf.py, ontology/: parsers, the
+DAG, annotation, information content, term and set similarity, the cache
+and the database on the host; ops/similarity.py: the all-pairs MICA and
+Lin matrices on the device), with hand-written CUDA
 kernels for codon translation, exact Levenshtein by full-width bit
-vectors, banded Myers and the banded row DP with its traceback codes
-(csrc/, built by kernels/).
+vectors, banded Myers, the banded row DP with its traceback codes, the
+walk over those codes and the all-pairs MICA (csrc/, built by kernels/).
 """
 
 from __future__ import annotations

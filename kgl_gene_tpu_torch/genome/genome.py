@@ -3,8 +3,7 @@
 Capability parity with GenomeReference / GenomeCollection
 (kgl_genomics/kgl_genome/kgl_genome_genome.h:28,55, kgl_genome_collection.h).
 
-Copy of kgl_gene_tpu/genome/genome.py without GAF (gene ontology) loading,
-which waits for the ontology slice: a GAF path raises.
+Copy of kgl_gene_tpu/genome/genome.py.
 """
 
 from __future__ import annotations
@@ -39,14 +38,13 @@ class GenomeReference:
         translation_table: str = "NCBI_TABLE_1",
         verify: bool = True,
     ) -> "GenomeReference":
-        """Factory reading FASTA + GFF3, assigning the amino
+        """Factory reading FASTA + GFF3 (+ GAF), assigning the amino
         translation table and verifying the feature hierarchy
         (GenomeReference::createGenomeDatabase, kgl_genome_genome.h:55)."""
         from ..io.fasta import read_fasta
         from ..io.gff3 import parse_gff3_into
+        from ..io.gaf import read_gaf
 
-        if gaf_file:
-            raise NotImplementedError("GAF annotation is not ported yet")
         genome = cls(genome_id)
         table = amino_translation_table(translation_table)
         for contig_id, sequence in read_fasta(fasta_file):
@@ -57,6 +55,8 @@ class GenomeReference:
                 contig.setup_features()
             if verify:
                 genome.verify_features()
+        if gaf_file:
+            genome.gene_ontology = read_gaf(gaf_file)
         return genome
 
     # ------------------------------------------------------------------ #

@@ -69,6 +69,8 @@ _SIGNATURES = {
     # codes, row_stride, pair_stride, M, W, la, lb, ops, counts, B, band_k,
     # max_steps, stream
     "kgt_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream
+    "kgt_mica": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
     # coding, row_stride, k, out -> 1 (vector body) or 0 (scalar); no launch
     "kgt_translate_body": (_P, _I, _I, _P),
     # B, Wa, Wt, band_k -> 1 (group body) or 0 (thread); no launch

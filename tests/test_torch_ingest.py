@@ -136,9 +136,13 @@ def test_fixture_genome_equal(fixture_files):
 
 
 def test_gaf_path_raises(fixture_files):
-    with pytest.raises(NotImplementedError):
-        TGenome.create_genome_database("ref", fixture_files["fasta"], fixture_files["gff"],
+    """A GAF path fills gene_ontology as the JAX package does."""
+    j = JGenome.create_genome_database("ref", fixture_files["fasta"], fixture_files["gff"],
                                        gaf_file=fixture_files["gaf"])
+    t = TGenome.create_genome_database("ref", fixture_files["fasta"], fixture_files["gff"],
+                                       gaf_file=fixture_files["gaf"])
+    assert t.gene_ontology == j.gene_ontology
+    assert t.gene_ontology == {"GENE1": ["GO:0000001", "GO:0000002"], "GENE2": ["GO:0000001"]}
 
 
 @pytest.mark.parametrize("which", ["vcf", "vcf_gz"])

@@ -106,6 +106,24 @@ def test_port_runs_with_jax_blocked():
         "a = fam.TranscriptFamilyAnalysis(recs, 'ATGGCATAA', device='cpu')\n"
         "assert a.reference_cigars() == {'ATGGCGTAA': '5M1X3M', 'ATGCATAA': '2M1D6M'}\n"
         "assert a.distance_tree_newick() == '(g2:1,g1:1):0;'\n"
+        "import kgl_gene_tpu_torch.ontology.obographs, kgl_gene_tpu_torch.ontology.go_xml\n"
+        "import kgl_gene_tpu_torch.ontology.set_similarity, kgl_gene_tpu_torch.ontology.enrichment\n"
+        "import kgl_gene_tpu_torch.ontology.shared_information, kgl_gene_tpu_torch.io.gaf\n"
+        "from kgl_gene_tpu_torch.ontology.database import OntologyDatabase\n"
+        "from kgl_gene_tpu_torch.ontology.information import InformationContent\n"
+        "from kgl_gene_tpu_torch.ops.similarity import lin_matrix_device\n"
+        "import tempfile, os\n"
+        "obo = os.path.join(tempfile.mkdtemp(), 'go.obo')\n"
+        "open(obo, 'w').write('[Term]\\nid: GO:0008150\\nnamespace: biological_process\\n\\n'\n"
+        "    '[Term]\\nid: GO:2\\nnamespace: biological_process\\nis_a: GO:0008150\\n')\n"
+        "gaf = obo + '.gaf'\n"
+        "open(gaf, 'w').write(''.join('\\t'.join(['D', g, g, '', go, 'r', 'IEA', '', 'P']\n"
+        "                                           + [''] * 8) + '\\n'\n"
+        "                              for g, go in (('g1', 'GO:2'), ('g2', 'GO:0008150'))))\n"
+        "db = OntologyDatabase('t', obo, gaf)\n"
+        "assert db.self_test()\n"
+        "lin = lin_matrix_device(db.information, ['GO:2', 'GO:0008150'], device='cpu')\n"
+        "assert lin.shape == (2, 2) and lin[0, 0] == 1.0\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"
