@@ -6,7 +6,7 @@
 Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
 host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
 kernel against its plain PyTorch version on the card (exact equality),
-and drives six paths, each with the launch counts set to 0 just before
+and drives seven paths, each with the launch counts set to 0 just before
 and read just after where it launches a kernel:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
@@ -84,7 +84,24 @@ and read just after where it launches a kernel:
      instructions) and the design's own count (a warp's lane slots at the
      merge loop's MICA_MERGE_OPS), the plain version's seconds, peak
      device memory and the generated ontology's shape (edges by relation,
-     depth, ancestors a term, annotated BP terms).
+     depth, ancestors a term, annotated BP terms);
+  7. the checkpointed ingest and the local metric (phase 3g): phase 3c's
+     VCF parsed by the streaming loop with an ingest cursor every
+     CHECKPOINT_EVERY records, interrupted by a parser that raises after
+     CHECKPOINT_INTERRUPT records and resumed; it fails unless the cursor
+     stopped at the last snapshot, the resumed population and INFO equal
+     the native ingest's, the checkpoint files are gone, and PassFilter,
+     SNPFilter and PloidyAnalysis give the same on both. Then
+     TranscriptFamilyAnalysis(metric="local") over phase 3b's 256 mutants
+     (reference_distances and the 32,640-pair distance_tree_newick) on
+     the card, counts from 0: it fails unless only kernel `local`
+     (csrc/wavefront.cu, kgt_local) launched, the reference distances and
+     the all-pairs matrix equal the cell-level plain version on the card
+     (the matrix in chunks, every pair unless LOCAL_PLAIN_LIMIT_S stops it
+     first: the line says how many were held), a few entries equal the
+     numpy DP, and batched_metric's local and global coding metrics over
+     the same pairs equal the matrix and B3. It prints the checkpointed
+     streaming seconds beside the native ingest's.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -94,7 +111,11 @@ forward step's shapes take B1's group body, a launch of 9,000 pairs at
 band 511 its thread body, the family's band B4's warp body, and B5 its
 warp body up to band 255 and its block body above. The walk over B4's
 codes (csrc/walk.cu) is held against its plain PyTorch loop at the
-family's shape and on the wide-edit pairs.
+family's shape and on the wide-edit pairs. The local kernel is held
+against its word-level and cell-level plain versions on ragged pairs in
+both orders, a shared row, codes negative and >= 32, lq == lt, pads that
+copy the query, the 64-row block and 2,048-row slot edges, queries of one
+and several 4,096-row stripes up to 5,000 rows and 12,300-wide rows.
 
 Then it times the step, the family path and each kernel; the family
 path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
@@ -112,8 +133,11 @@ Output: progress lines, then one JSON line {"device_functions": [...]}
 (phases 3d's and 3e's device functions: time, launches, byte bound), one
 {"scale": {...}} (phase 3d's stages and checks), one {"phylo": {...}}
 (phase 3e's rates and checks), one {"ontology": {...}} (phase 3f's stages,
-sizes, checks and the MICA kernel's times and bounds), one {"kernels":
-[...]} of eight rows (the rows of B1, B2 and B3 also carry their launches
+sizes, checks and the MICA kernel's times and bounds), one
+{"checkpoint_local": {...}} (phase 3g's seconds and checks), one {"kernels":
+[...]} of ten rows (`local` at B = 256 against the shared reference and
+`local_pool` over the 32,640 pairs are the local kernel's; the rows of
+B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
 issue floor, and it carries design_issue_ms), the card's
@@ -232,6 +256,15 @@ MICA_STEP_OPS = 6
 # (cuobjdump -sass of the library): the price in the design's own count.
 MICA_MERGE_OPS = 16
 MICA_TILE = 16
+
+
+# Phase 3g: the checkpointed ingest of phase 3c's VCF and the local metric
+# over phase 3b's 256 mutants.
+CHECKPOINT_EVERY = 500
+CHECKPOINT_INTERRUPT = 1_700  # records the interrupted parser takes before it raises
+LOCAL_PLAIN_CHUNK = 4_096  # pairs a call of the cell-level plain version takes
+LOCAL_PLAIN_LIMIT_S = 60.0  # past it the plain version holds the pairs done so far
+LOCAL_ORACLE_PAIRS = 6  # all-pairs entries also held against the numpy DP
 
 
 def log(msg):
@@ -833,6 +866,102 @@ def banded_case(rng, B):
     return a, la, b, lb
 
 
+def local_pair_set(rng, lengths, alphabet=4):
+    """Pairs (q-ish row, t-ish row) for the local kernel: each length pair
+    (la, lb) gets a row a and a mutant b that carries a near copy of a's
+    middle, so the infix distances are small and their minima lie inside
+    the rows; the pad of each row past its length repeats the other row's
+    start (a minimum taken past lt would read it)."""
+    a_rows, b_rows = [], []
+    for la, lb in lengths:
+        a = rng.integers(0, alphabet, size=la).astype(np.int32)
+        b = rng.integers(0, alphabet, size=lb).astype(np.int32)
+        n = min(la, lb) // 2
+        if n:
+            at = int(rng.integers(0, lb - n + 1))
+            piece = indel_mutant(rng, a[(la - n) // 2: (la - n) // 2 + n], n // 40, n // 200)
+            b[at: at + min(len(piece), lb - at)] = piece[: lb - at]
+        a_rows.append(a)
+        b_rows.append(b)
+    a, la_ = pack_pairs(a_rows)
+    b, lb_ = pack_pairs(b_rows)
+    for i in range(len(a_rows)):  # pads that copy the other row
+        a[i, la_[i]:] = np.resize(b[i], a.shape[1] - la_[i])
+        b[i, lb_[i]:] = np.resize(a[i], b.shape[1] - lb_[i])
+    return a, la_, b, lb_
+
+
+def local_kernel_cases(dev, errs):
+    """Kernel `local` (csrc/wavefront.cu, kgt_local) against its
+    word-level plain version (ops/local.bitvector_local_plain) and the
+    cell-level row DP (ops/edit_distance.batched_levenshtein_local) on the
+    card: ragged pairs in both orders with codes up to 40, a shared row,
+    lq == lt, codes negative and >= 32, pads past lt that copy the query,
+    the 64-row block edges, the 2,048-row slot edge, queries of one and
+    several 4,096-row stripes up to 5,000 rows, dynamic shared memory
+    above 48 KB, and empty widths and batches."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein_local
+    from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel, bitvector_local_plain
+
+    rng = np.random.default_rng(SEED + 11)
+
+    def held(name, a, la, b, lb, cell=True):
+        args = [torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=dev)
+                for x in (a, la, b, lb)]
+        got = batched_levenshtein_local_kernel(*args)
+        errs["local"] = max(errs["local"], exact(
+            f"local {name} vs the word-level plain version", got, bitvector_local_plain(*args)))
+        if cell:
+            errs["local"] = max(errs["local"], exact(
+                f"local {name} vs the cell-level plain version", got,
+                batched_levenshtein_local(*args)))
+
+    B, Ma, Mb = 64, 300, 330
+    a = rng.integers(0, 41, (B, Ma)).astype(np.int32)
+    b = rng.integers(0, 41, (B, Mb)).astype(np.int32)
+    b[:, 10:250] = a[:, 20:260]
+    b[rng.random(b.shape) < 0.1] = 40
+    la = rng.integers(0, Ma + 1, B).astype(np.int32)
+    lb = rng.integers(0, Mb + 1, B).astype(np.int32)
+    la[:9] = (63, 64, 65, 127, 128, 129, 192, 300, 0)
+    lb[:9] = (330, 64, 1, 200, 128, 330, 0, 299, 17)
+    held("ragged, codes 0..40, la on block edges, lq == lt (B=64, Ma=300, Mb=330)", a, la, b, lb)
+    held("the same pairs in the other order (Ma=330, Mb=300)", b, lb, a, la)
+    ref = b[:1]
+    ref_l = np.full(B, 280, np.int32)
+    held("one shared row (1, 330) read with stride 0, B=64", a, la, ref, ref_l)
+
+    pool = np.array([-7, -1, 0, 3, 31, 32, 33, 1000, 2 ** 31 - 1, -(2 ** 31)])
+    o_a = rng.choice(pool, (32, 200))
+    o_b = rng.choice(pool, (32, 260))
+    o_b[:, 30:180] = o_a[:, 25:175]
+    o_la = rng.integers(1, 201, 32)
+    o_lb = rng.integers(1, 261, 32)
+    held("codes negative and >= 32 (B=32, Ma=200, Mb=260)", o_a, o_la, o_b, o_lb)
+
+    # Lengths to 5,000: the slot edge at 2,048 rows (32 blocks, lane 31's
+    # first slot), one stripe of 64 blocks at 4,096 rows, two above it;
+    # both orders and lq == lt.
+    lengths = [(1, 5000), (2047, 2100), (2048, 2048), (2049, 4000), (4095, 4095),
+               (4096, 4500), (4097, 4097), (5000, 4990), (4100, 1), (3000, 4999)]
+    a, la, b, lb = local_pair_set(rng, lengths)
+    held("lengths 1-5,000 (B=10, W=5,000: two slots a lane, stripes of 4,096 rows)", a, la, b, lb)
+    held("the same, the other order", b, lb, a, la)
+    a, la, b, lb = local_pair_set(rng, [(2048, 5000), (2000, 4800), (64, 5000), (1, 3)])
+    held("a narrow pattern width (Ma=2,048: one slot) against a wide text (Mb=5,000)",
+         a, la, b, lb)
+    held("the same, the other order", b, lb, a, la)
+    # Dynamic shared memory above 48 KB: 193 blocks of match words.
+    a, la, b, lb = local_pair_set(rng, [(12300, 12290), (12000, 12300)])
+    held("M=12,300 (dynamic shared memory above 48 KB, three stripes)", a, la, b, lb)
+    for name, rows, wa, wb in (("Ma = 0", 3, 0, 7), ("Mb = 0", 3, 7, 0), ("B = 0", 0, 7, 7)):
+        held(name, rng.integers(0, 4, (rows, wa)), np.full(rows, wa), rng.integers(0, 4, (rows, wb)),
+             np.full(rows, wb))
+    torch.cuda.synchronize()
+
+
 def phase_banded_kernels(dev, errs):
     """B5, B4 and B1's per-pair mode at wide bands against their plain
     versions on the card."""
@@ -912,25 +1041,28 @@ class HostDPCounter:
         self._legacy.compare_sequences = self._orig
 
 
-class MatrixCapture:
-    """Keeps the all-pairs matrices the family analysis computes while the
-    block runs: wraps its pairwise_distance_matrix."""
+class ResultCapture:
+    """Keeps what lib_seqmutation's function `name` returns while the block
+    runs (the family analysis' all-pairs matrices or gathered distances)."""
+
+    def __init__(self, name):
+        self.name = name
 
     def __enter__(self):
         from kgl_gene_tpu_torch.analysis import lib_seqmutation
 
-        self.matrices = []
-        self._mod, self._orig = lib_seqmutation, lib_seqmutation.pairwise_distance_matrix
+        self.results = []
+        self._mod, self._orig = lib_seqmutation, getattr(lib_seqmutation, self.name)
 
         def capturing(*args, **kwargs):
-            self.matrices.append(self._orig(*args, **kwargs))
-            return self.matrices[-1]
+            self.results.append(self._orig(*args, **kwargs))
+            return self.results[-1]
 
-        lib_seqmutation.pairwise_distance_matrix = capturing
+        setattr(lib_seqmutation, self.name, capturing)
         return self
 
     def __exit__(self, *exc):
-        self._mod.pairwise_distance_matrix = self._orig
+        setattr(self._mod, self.name, self._orig)
 
 
 def family_records(out, inputs, region):
@@ -949,6 +1081,20 @@ def family_records(out, inputs, region):
             for i in range(coding.shape[0])]
     ref = np.concatenate([region[lo:hi] for lo, hi in EXONS])
     return recs, DNA5.to_string(ref)
+
+
+def config_a_records(dev):
+    """Phase 3b's records and reference: configuration (a)'s forward step on
+    the card, from the same seed as main(); for running phase 3g alone."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.pipeline import make_forward_step
+
+    rng = np.random.default_rng(SEED)
+    region = gene_region(rng)
+    kw, inp, _kernel = main_path_configs(rng, region)["a bench B=256 K=48"]
+    out = make_forward_step(**kw, device=dev)(*(torch.as_tensor(x, device=dev) for x in inp))
+    return family_records(out, inp, region)
 
 
 def cigar_lengths(cigar):
@@ -981,7 +1127,7 @@ def phase_family(dev, records, ref, workdir):
     fam = TranscriptFamilyAnalysis(records, ref, device=dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    with HostDPCounter() as host_dp, MatrixCapture() as captured:
+    with HostDPCounter() as host_dp, ResultCapture("pairwise_distance_matrix") as captured:
         dist = fam.reference_distances()
         tree = fam.distance_tree_newick()
         cigars = fam.reference_cigars()
@@ -993,8 +1139,8 @@ def phase_family(dev, records, ref, workdir):
     if any(counts.get(name, 0) < 1 for name in expected) or any(
             n for name, n in counts.items() if name not in expected):
         raise AssertionError(f"expected launches of {expected} only on the family path, got {counts}")
-    if len(captured.matrices) != 1:
-        raise AssertionError(f"expected one all-pairs matrix, got {len(captured.matrices)}")
+    if len(captured.results) != 1:
+        raise AssertionError(f"expected one all-pairs matrix, got {len(captured.results)}")
     if host_dp.calls:
         raise AssertionError(f"{host_dp.calls} pairs took the host DP; distances are <= 96 < 127")
 
@@ -1024,7 +1170,7 @@ def phase_family(dev, records, ref, workdir):
     # Myers pool at band 127 with its exact re-run, another exact route.
     matrix = pairwise_distance_matrix(seqs, lens, band_k=127, device="cpu")
     exact("the tree's all-pairs matrix (B1 pool k=127 + re-run) vs the CPU's, every entry",
-          torch.as_tensor(captured.matrices[0]), torch.as_tensor(matrix))
+          torch.as_tensor(captured.results[0]), torch.as_tensor(matrix))
     labels = [g[0] if len(g) == 1 else f"{g[0]}+{len(g) - 1}" for g in fam.distinct_sequences().values()]
     same("distance_tree_newick (B1 pool, UPGMA)", tree, newick(upgma_tree(matrix, labels)))
     if matrix[0, 1] != levenshtein_numpy(seqs[0][: lens[0]], seqs[1][: lens[1]]):
@@ -1309,6 +1455,280 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
         r.update(route="cuda", library_ms=None)
         log(f"  kernel {r['name']} at {r['shape']}: {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), library none")
+    return rows
+
+
+
+class IngestInterrupted(Exception):
+    """Raised by interrupted_parser's parser."""
+
+
+def interrupted_parser(after):
+    """A PfDiploidParser that raises once it has taken `after` records."""
+    from kgl_gene_tpu_torch.io.vcf import PfDiploidParser
+
+    class Interrupted(PfDiploidParser):
+        def parse(self, header, records):
+            def cut():
+                for i, rec in enumerate(records):
+                    if i == after:
+                        raise IngestInterrupted(f"ingest interrupted after {after} records")
+                    yield rec
+            return super().parse(header, cut())
+
+    return Interrupted
+
+
+def phase_checkpoint_local(dev, workdir, records, ref, errs):
+    """Phase 3g: the checkpointed ingest of phase 3c's VCF, interrupted and
+    resumed, against the uninterrupted native ingest (population, INFO,
+    PassFilter / SNPFilter views, PloidyAnalysis); then the local metric
+    (TranscriptFamilyAnalysis(metric="local")) over phase 3b's 256 mutants
+    on the card, counts from 0: only kernel `local` may launch; its all-pairs
+    matrix against the cell-level plain version on the card (every pair,
+    or the pairs LOCAL_PLAIN_LIMIT_S allows), a few entries against the
+    numpy DP, and batched_metric's local and global metrics over the same
+    pairs against the matrix and B3. Returns the phase's figures, the
+    launches of the local path and what phase 4 needs."""
+    import torch
+
+    import kgl_gene_tpu_torch.io.vcf as tvcf
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.analysis.legacy import PloidyAnalysis
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
+    from kgl_gene_tpu_torch.classify import distance as metrics
+    from kgl_gene_tpu_torch.classify.upgma import newick, upgma_tree
+    from kgl_gene_tpu_torch.io.synthetic import generate_population_files
+    from kgl_gene_tpu_torch.ops.edit_distance import (
+        batched_levenshtein_local, levenshtein_local_numpy,
+    )
+    from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
+    from kgl_gene_tpu_torch.variant import filter as vfilter
+    from kgl_gene_tpu_torch.variant.columnar import VariantMajorView
+
+    out = {}
+    t0 = time.perf_counter()
+    paths = generate_population_files(workdir, **PRODUCT)
+    out["files_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native = tvcf.parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID")
+    out["native_s"] = time.perf_counter() - t0
+
+    ckpt = os.path.join(workdir, "ingest.cursor")
+    saved = tvcf._PARSERS["PF_DIPLOID"]
+    tvcf._PARSERS["PF_DIPLOID"] = interrupted_parser(CHECKPOINT_INTERRUPT)
+    t0 = time.perf_counter()
+    try:
+        tvcf.parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID", checkpoint_path=ckpt,
+                                  checkpoint_every=CHECKPOINT_EVERY)
+        raise AssertionError("the interrupted parser did not raise")
+    except IngestInterrupted:
+        pass
+    finally:
+        tvcf._PARSERS["PF_DIPLOID"] = saved
+    out["interrupted_s"] = time.perf_counter() - t0
+    with open(ckpt) as f:
+        cursor = json.load(f)
+    if cursor["record_count"] != CHECKPOINT_INTERRUPT // CHECKPOINT_EVERY * CHECKPOINT_EVERY:
+        raise AssertionError(f"cursor at {cursor['record_count']} records")
+    out["cursor_records"] = cursor["record_count"]
+    t0 = time.perf_counter()
+    resumed = tvcf.parse_vcf_population(paths.vcf, "pop", "PF_DIPLOID", checkpoint_path=ckpt,
+                                        checkpoint_every=CHECKPOINT_EVERY)
+    out["resumed_s"] = time.perf_counter() - t0
+    log(f"  checkpointed streaming ingest: interrupted after {CHECKPOINT_INTERRUPT} records "
+        f"{out['interrupted_s']:.3f} s (cursor at {cursor['record_count']}), resumed "
+        f"{out['resumed_s']:.3f} s; native ingest {out['native_s']:.3f} s")
+    same_population("resumed checkpointed ingest vs the native ingest", resumed, native)
+    left = [name for name in os.listdir(workdir) if name.startswith("ingest.cursor")]
+    if left:
+        raise AssertionError(f"checkpoint files left after the ingest: {left}")
+    for name, filt in (("PassFilter", vfilter.PassFilter()), ("SNPFilter", vfilter.SNPFilter()),
+                       ("PassFilter & SNPFilter", vfilter.PassFilter() & vfilter.SNPFilter())):
+        got, want = resumed[0].view_filter(filt), native[0].view_filter(filt)
+        if population_snapshot(got) != population_snapshot(want):
+            raise AssertionError(f"{name} differs on the resumed population")
+        log(f"  {name}: equal ({got.variant_count()} of {native[0].variant_count()} incidences)")
+    ploidy = []
+    for pop in (resumed[0], native[0]):
+        p = PloidyAnalysis()
+        p.add_population(VariantMajorView(pop))
+        ploidy.append({g: vars(d) for g, d in p.genome_data.items()})
+    if ploidy[0] != ploidy[1] or len(ploidy[0]) != PRODUCT["n_samples"]:
+        raise AssertionError("PloidyAnalysis differs on the resumed population")
+    log(f"  PloidyAnalysis: equal ({sum(d['heterozygous'] for d in ploidy[0].values())} het, "
+        f"{sum(d['homozygous'] for d in ploidy[0].values())} hom)")
+    del native, resumed
+
+    # The local metric at full width, counts from 0.
+    fam = TranscriptFamilyAnalysis(records, ref, metric="local", device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with ResultCapture("gathered_pairs") as captured:
+        dist = fam.reference_distances()
+        t1 = time.perf_counter()
+        n_ref = kernels.LAUNCHES["local"]
+        tree = fam.distance_tree_newick()
+    torch.cuda.synchronize()
+    out["reference_distances_s"] = t1 - t0
+    out["distance_tree_newick_s"] = time.perf_counter() - t1
+    counts = dict(kernels.LAUNCHES)
+    launches = {"local": n_ref, "local_pool": counts.get("local", 0) - n_ref}
+    out["launches"] = launches
+    log(f"  local family path launches: {counts} (reference_distances {launches['local']}, "
+        f"distance_tree_newick {launches['local_pool']})")
+    if min(launches.values()) < 1 or set(counts) != {"local"}:
+        raise AssertionError(f"expected launches of the local kernel only, got {counts}")
+    distinct = list(fam.distinct_sequences())
+    seqs, lens = fam._padded_codes(distinct)
+    n = len(distinct)
+    iu, ju = np.triu_indices(n, k=1)
+    P = len(iu)
+    d_kernel = captured.results[0]
+    log(f"  {n} distinct mutants, {P} pairs: reference_distances "
+        f"{out['reference_distances_s'] * 1e3:.3f} ms, distance_tree_newick "
+        f"{out['distance_tree_newick_s'] * 1e3:.3f} ms")
+
+    # Reference distances: the cell-level plain version on the card.
+    ref_codes, ref_len = fam._padded_codes([ref])
+    pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
+    plens = torch.as_tensor(lens, device=dev)
+    ref_t = torch.as_tensor(ref_codes.astype(np.int32), device=dev)
+    rl = torch.full((n,), int(ref_len[0]), dtype=torch.int32, device=dev)
+    want = batched_levenshtein_local(pool, plens, ref_t, rl)
+    errs["local"] = max(errs["local"], exact(
+        f"local reference_distances (B={n}, one shared row) vs the cell-level plain version",
+        torch.as_tensor([dist[s] for s in distinct]), want))
+
+    # The all-pairs matrix: the cell-level plain version over the pairs
+    # gathered on the card, in chunks, for as long as the limit allows.
+    iu_t, ju_t = torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev)
+    parts, held = [], 0
+    t0 = time.perf_counter()
+    while held < P and time.perf_counter() - t0 < LOCAL_PLAIN_LIMIT_S:
+        i, j = iu_t[held: held + LOCAL_PLAIN_CHUNK], ju_t[held: held + LOCAL_PLAIN_CHUNK]
+        parts.append(batched_levenshtein_local(pool.index_select(0, i), plens.index_select(0, i),
+                                               pool.index_select(0, j), plens.index_select(0, j)))
+        held += len(i)
+    torch.cuda.synchronize()
+    out["plain_s"] = time.perf_counter() - t0
+    out["plain_pairs"] = held
+    cut = "" if held == P else f" (the plain version's {LOCAL_PLAIN_LIMIT_S:.0f} s limit)"
+    errs["local_pool"] = max(errs["local_pool"], exact(
+        f"local all-pairs matrix (P={P}, S={S}) vs the cell-level plain version on the card, "
+        f"every entry of the first {held} pairs{cut}",
+        torch.as_tensor(d_kernel[:held]), torch.cat(parts)))
+    log(f"    the plain version: {out['plain_s']:.1f} s for {held} pairs"
+        + ("" if held == P else f"; the other {P - held} pairs are not held"))
+    del parts
+    labels = [g[0] if len(g) == 1 else f"{g[0]}+{len(g) - 1}"
+              for g in fam.distinct_sequences().values()]
+    matrix = np.zeros((n, n))
+    matrix[iu, ju] = d_kernel
+    matrix[ju, iu] = d_kernel
+    same("local distance_tree_newick vs UPGMA of its matrix", tree,
+         newick(upgma_tree(matrix, labels)))
+    rng = np.random.default_rng(SEED + 7)
+    for k in rng.choice(P, LOCAL_ORACLE_PAIRS, replace=False):
+        a, b = seqs[iu[k], : lens[iu[k]]], seqs[ju[k], : lens[ju[k]]]
+        if d_kernel[k] != levenshtein_local_numpy(a, b):
+            raise AssertionError(f"local pair {k} differs from the numpy DP")
+    for s in distinct[:3]:
+        if dist[s] != levenshtein_local_numpy(fam._padded_codes([s])[0][0], ref_codes[0]):
+            raise AssertionError("local reference distance differs from the numpy DP")
+    log(f"  {LOCAL_ORACLE_PAIRS} pairs and 3 reference distances: equal to the numpy DP")
+
+    # batched_metric over the same pairs.
+    a_list = [seqs[i, : lens[i]] for i in iu]
+    b_list = [seqs[j, : lens[j]] for j in ju]
+    t0 = time.perf_counter()
+    by_metric = metrics.batched_metric(metrics.levenshtein_local_coding, a_list, b_list, device=dev)
+    out["batched_metric_local_s"] = time.perf_counter() - t0
+    errs["local_pool"] = max(errs["local_pool"], exact(
+        f"batched_metric(levenshtein_local_coding) over the {P} pairs vs the tree's matrix",
+        torch.as_tensor(by_metric), torch.as_tensor(d_kernel)))
+    by_global = metrics.batched_metric(metrics.levenshtein_global_coding, a_list, b_list,
+                                       device=dev)
+    pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
+    b3 = batched_levenshtein_kernel(pa, plens.index_select(0, iu_t), pb,
+                                    plens.index_select(0, ju_t))
+    errs["wavefront"] = max(errs["wavefront"], exact(
+        f"batched_metric(levenshtein_global_coding) over the {P} pairs vs B3",
+        torch.as_tensor(by_global), b3))
+    if not (by_metric <= by_global).all():
+        raise AssertionError("a local distance exceeds its global one")
+    del pa, pb, b3, a_list, b_list
+    torch.cuda.empty_cache()
+    out["local_mean"] = float(np.mean(d_kernel))
+    out["global_mean"] = float(np.mean(by_global))
+    return out, launches, dict(seqs=seqs, lens=lens, d_kernel=d_kernel, ref=ref, fam=fam,
+                               plain_pairs_s=(held, out["plain_s"]))
+
+
+def phase_local_times(dev, state, errs):
+    """The local kernel's rows: B = 256 against the shared reference (the
+    reference_distances launch) and the 32,640 pairs of the tree, each held
+    against phase 3g's results, timed host-inclusive and by a CUDA graph
+    beside its bound and its plain version's time."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein_local
+    from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel
+
+    seqs, lens, fam = state["seqs"], state["lens"], state["fam"]
+    n = seqs.shape[0]
+    rows = []
+    pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
+    plens = torch.as_tensor(lens, device=dev)
+    ref_codes, ref_len = fam._padded_codes([state["ref"]])
+    ref_t = torch.as_tensor(ref_codes.astype(np.int32), device=dev)
+    rl = torch.full((n,), int(ref_len[0]), dtype=torch.int32, device=dev)
+
+    def steps_of(la, lb):
+        la, lb = la.astype(np.int64), lb.astype(np.int64)
+        lq, lt = np.minimum(la, lb), np.maximum(la, lb)
+        return int((-(-lq // 64) * lt).sum())
+
+    kern = functools.partial(batched_levenshtein_local_kernel, pool, plens, ref_t, rl)
+    plain = functools.partial(batched_levenshtein_local, pool, plens, ref_t, rl)
+    ms, p_ms = checked_times(f"local kernel (B={n}, S={S}, one shared reference row)", "local",
+                             errs, kern, plain, 20)
+    d_ms = time_device([kern], 20)
+    ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens, np.full(n, ref_len[0]))
+    b_ms, by = bound(ops, pool.numel() * 4 + ref_t.numel() * 4 + 3 * n * 4)
+    log(f"  local kernel B={n} shared reference: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; "
+        f"plain (cell-level) {p_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
+    rows.append(dict(name="local", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
+                     replaces="kgl_gene_tpu/ops/edit_distance.py:89",
+                     shape=f"B={n}, S={S}, one shared reference row", ms=ms, device_ms=d_ms,
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=ops))
+
+    iu, ju = np.triu_indices(n, k=1)
+    P = len(iu)
+    iu_t, ju_t = torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev)
+    pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
+    pla, plb = plens.index_select(0, iu_t), plens.index_select(0, ju_t)
+    kern = functools.partial(batched_levenshtein_local_kernel, pa, pla, pb, plb)
+    errs["local_pool"] = max(errs["local_pool"], exact(
+        f"local kernel (P={P} all pairs, S={S}) vs phase 3g's matrix", kern(),
+        torch.as_tensor(state["d_kernel"])))
+    ms = time_cuda(kern, 3, windows=3)
+    d_ms = time_device([kern], 3)
+    ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens[iu], lens[ju])
+    b_ms, by = bound(ops, 2 * pa.numel() * 4 + 3 * P * 4)
+    held, plain_s = state["plain_pairs_s"]
+    log(f"  local kernel P={P} all pairs: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; "
+        f"bound {b_ms:.6f} ms ({by}); the plain version {plain_s * 1e3:.3f} ms for {held} pairs")
+    rows.append(dict(name="local_pool", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
+                     replaces="kgl_gene_tpu/ops/edit_distance.py:89",
+                     shape=f"P={P} all pairs, S={S}, per-pair rows", ms=ms, device_ms=d_ms,
+                     plain_ms=plain_s * 1e3, plain_pairs=held, bound_ms=b_ms, bound_by=by,
+                     int_ops=ops))
+    del pa, pb
+    torch.cuda.empty_cache()
+    for r in rows:
+        r.update(route="cuda", library_ms=None)
     return rows
 
 
@@ -2566,7 +2986,7 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
-                          "myers_pool", "walk", "mica"), 0)
+                          "myers_pool", "walk", "mica", "local", "local_pool"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -2589,6 +3009,7 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_kernels(dev, errs)
         phase_banded_kernels(dev, errs)
+        local_kernel_cases(dev, errs)
         log(f"  phase 2: {time.perf_counter() - t0:.1f} s")
 
         phase = "main path: forward step"
@@ -2651,12 +3072,23 @@ def main() -> int:
         ontology["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3f: {ontology['phase_s']:.1f} s")
 
+        phase = "main path: checkpoint ingest and the local metric"
+        log(f"phase 3g: {phase}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            checkpoint_local, local_launches, local_state = phase_checkpoint_local(
+                dev, workdir, records, ref, errs)
+        launches.update(local_launches)
+        checkpoint_local["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3g: {checkpoint_local['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
         rows = phase_times(dev, steps, inputs, configs, errs)
         rows += phase_family_times(dev, records, ref, seqs, lens, matrix, errs)
         rows.append(mica_row)
+        rows += phase_local_times(dev, local_state, errs)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -2688,13 +3120,14 @@ def main() -> int:
                 "launches_indel_band0": band0.get(r["name"], 0)}
                if r["name"] in ("translate", "myers", "wavefront") else {}),
             **{key: val for key, val in r.items()
-               if ("_ms" in key or key.startswith("ms_"))
+               if ("_ms" in key or key.startswith("ms_") or key == "plain_pairs")
                and key not in ("plain_ms", "bound_ms", "library_ms")},
         })
     print(json.dumps({"device_functions": device_functions}))
     print(json.dumps({"scale": scale}))
     print(json.dumps({"phylo": phylo}))
     print(json.dumps({"ontology": ontology}))
+    print(json.dumps({"checkpoint_local": checkpoint_local}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,15 @@ sampler and of the vmapped heated chains on the device, the kpl app
 phylo/strom.py), and the GO ontology (io/gaf.py, ontology/: parsers, the
 DAG, annotation, information content, term and set similarity, the cache
 and the database on the host; ops/similarity.py: the all-pairs MICA and
-Lin matrices on the device), with hand-written CUDA
-kernels for codon translation, exact Levenshtein by full-width bit
-vectors, banded Myers, the banded row DP with its traceback codes, the
-walk over those codes and the all-pairs MICA (csrc/, built by kernels/).
+Lin matrices on the device), the checkpointed VCF ingest (io/checkpoint.py
+and the cursor of io/vcf.py), the typed distance metrics (classify/
+distance.py) with the local (infix) metric on the device (ops/local.py),
+and the host remainder of the genomics core (analysis/legacy.py,
+sequence/complexity.py, variant/filter.py, variant/vep.py, utils/), with
+hand-written CUDA kernels for codon translation, exact Levenshtein by
+full-width bit vectors and the local distance by the same body, banded
+Myers, the banded row DP with its traceback codes, the walk over those
+codes and the all-pairs MICA (csrc/, built by kernels/).
 """
 
 from __future__ import annotations

@@ -19,10 +19,13 @@ Each device step of TranscriptFamilyAnalysis runs on the card unless the
 analysis was made with device='cpu':
 
   - reference_distances: global metric on the exact wavefront (kernel
-    B3), local (infix) metric in plain PyTorch;
-  - distance_tree_newick: the all-pairs matrix (on the card, kernel B1's
-    pair pool at band 127 with its exact overflow re-run; on the CPU the
-    exact route), then UPGMA and Newick on the host;
+    B3), local (infix) metric on kernel `local`, the reference one row
+    read by every pair;
+  - distance_tree_newick: the all-pairs matrix (global: on the card,
+    kernel B1's pair pool at band 127 with its exact overflow re-run, on
+    the CPU the exact route; local: kernel `local` over the pairs gathered
+    on the device from the uploaded pool), then UPGMA and Newick on the
+    host;
   - reference_cigars: the banded traceback (kernel B4, ops/traceback).
 """
 
@@ -35,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import int32_on, kernels, resolve_device
+from .. import kernels, resolve_device
 from ..classify.upgma import newick, upgma_tree
 from ..genome.contig import ContigReference
 from ..genome.features import (
@@ -46,7 +49,8 @@ from ..genome.features import (
 from ..mutation.capture import BatchCapture, capture_population_batch, capture_population_split
 from ..mutation.sequence_filter import SeqVariantFilterType
 from ..mutation.transcript import SequenceTranscript
-from ..ops.edit_distance import batched_levenshtein_local, pairwise_distance_matrix
+from ..ops.edit_distance import gathered_pairs, pairwise_distance_matrix
+from ..ops.local import batched_levenshtein_local_kernel, local_levenshtein
 from ..ops.pipeline import (
     forward,
     forward_indel,
@@ -669,10 +673,6 @@ class TranscriptFamilyAnalysis:
             lens[i] = len(codes)
         return seqs, lens
 
-    def _local(self, seq_a, len_a, seq_b, len_b) -> np.ndarray:
-        return batched_levenshtein_local(
-            *int32_on(self.device, seq_a, len_a, seq_b, len_b)).cpu().numpy()
-
     def reference_distances(self) -> Dict[str, int]:
         """Distance of each distinct mutant to the reference coding
         sequence (global NW or local infix, per self.metric)."""
@@ -682,12 +682,9 @@ class TranscriptFamilyAnalysis:
         seqs, lens = self._padded_codes(distinct + [self.reference_coding])
         n = len(distinct)
         ref_len = np.repeat(lens[-1:], n)
-        if self.metric == "local":
-            distances = self._local(seqs[:n], lens[:n], np.repeat(seqs[-1:], n, axis=0),
-                                    ref_len)
-        else:  # one reference row shared by every pair
-            distances = wavefront_levenshtein(seqs[:n], lens[:n], seqs[-1:], ref_len,
-                                              device=self.device)
+        # One reference row shared by every pair.
+        route = local_levenshtein if self.metric == "local" else wavefront_levenshtein
+        distances = route(seqs[:n], lens[:n], seqs[-1:], ref_len, device=self.device)
         return dict(zip(distinct, distances.tolist()))
 
     def distance_tree_newick(self, max_leaves: int = 256) -> str:
@@ -702,9 +699,12 @@ class TranscriptFamilyAnalysis:
             return f"({labels[0] if labels else 'reference'}:0);"
         seqs, lens = self._padded_codes(sequences)
         if self.metric == "local":
+            # The pool goes up once; the pairs are gathered on the device.
             n = len(sequences)
             iu, ju = np.triu_indices(n, k=1)
-            d = self._local(seqs[iu], lens[iu], seqs[ju], lens[ju])
+            pool = torch.as_tensor(seqs.astype(np.int32), device=self.device)
+            pool_lens = torch.as_tensor(lens, device=self.device)
+            d = gathered_pairs(batched_levenshtein_local_kernel, pool, pool_lens, iu, ju)
             matrix = np.zeros((n, n), dtype=np.float64)
             matrix[iu, ju] = d
             matrix[ju, iu] = d

@@ -1,1 +1,1 @@
-"""Distance trees (copies of kgl_gene_tpu/classify)."""
+"""Distance metrics and trees (copies of kgl_gene_tpu/classify)."""

@@ -17,11 +17,14 @@ in columnar arrays (the arena + per-genome incidence columns + Arrow-style
 INFO columns). Decompression runs on the host BGZF thread pool.
 
 Copy of kgl_gene_tpu/io/vcf.py with its native half (the C++ record loop,
-genotype tokenizer and BGZF slab stream of native/) and without the ingest
-checkpoints. Where the JAX package falls back to the streaming Python loop
-because its native library is missing or its BGZF stream cannot open, this
-copy raises; the streaming loop runs only when the caller asks for it or
-the parser type has no native mode.
+genotype tokenizer and BGZF slab stream of native/) and its ingest
+checkpoints (the cursor of io/checkpoint.py). Where the JAX package falls
+back to the streaming Python loop because its native library is missing or
+its BGZF stream cannot open, this copy raises; the streaming loop runs
+only when the caller asks for it, the parser type has no native mode or a
+checkpoint path is given. A checkpoint's snapshots are read back by
+io/checkpoint.load_snapshot, which admits this package's classes only: a
+snapshot it refuses restarts the ingest, as an unreadable cursor does.
 """
 
 from __future__ import annotations
@@ -1229,6 +1232,94 @@ _PARSERS = {
 }
 
 
+def _record_key(rec: VCFRecord) -> str:
+    """Deterministic record identity for the ingest-cursor fingerprint."""
+    return (
+        f"{rec.contig_id}:{rec.offset}:{rec.ref}:{','.join(rec.alts)}:"
+        f"{rec.genotype_text[:64]}"
+    )
+
+
+def _try_resume(checkpoint_path: str, path: str):
+    """Load (cursor, population, info_store) when a valid checkpoint whose
+    prefix fingerprint matches the file exists; None -> fresh ingest. A
+    snapshot that load_snapshot refuses (a class outside this package, a
+    damaged file) is an unusable checkpoint: a warning and None."""
+    from .checkpoint import IngestCursor, UnusableCheckpoint, load_population, load_snapshot
+    from ..utils.string_hash import combine_hash, string_hash
+
+    cursor = IngestCursor.load(checkpoint_path)
+    snap = checkpoint_path + ".pop"
+    info_snap = checkpoint_path + ".info"
+    if cursor is None or cursor.file_path != path or not os.path.isfile(snap):
+        return None
+    # Re-verify the processed prefix: replay the first record_count records
+    # and compare the rolling hash (guards against a changed input file).
+    fp, n = 0, 0
+    _, records = read_vcf(path)
+    for rec in records:
+        if n >= cursor.record_count:
+            break
+        fp = combine_hash(fp, string_hash(_record_key(rec)))
+        n += 1
+    if n != cursor.record_count or fp != cursor.fingerprint:
+        log().warn(
+            "ingest cursor {}: prefix fingerprint mismatch (file changed?); "
+            "restarting ingest", checkpoint_path,
+        )
+        return None
+    try:
+        population = load_population(snap)
+        info_store = load_snapshot(info_snap) if os.path.isfile(info_snap) else None
+    except UnusableCheckpoint as exc:
+        log().warn("ingest cursor {}: {}; restarting ingest", checkpoint_path, exc)
+        return None
+    log().info(
+        "ingest cursor {}: resuming {} at record {} ({} incidences restored)",
+        checkpoint_path, path, cursor.record_count, population.variant_count(),
+    )
+    return cursor, population, info_store
+
+
+def _checkpointed_records(records, cursor, checkpoint_path, every,
+                          population, info_store, parser_box):
+    """Wrap a record stream: skip the resumed prefix, advance the cursor per
+    processed record, snapshot population+info every `every` records."""
+    import pickle
+
+    from .checkpoint import save_population
+    from ..utils.string_hash import combine_hash, string_hash
+
+    skip = cursor.record_count
+
+    def snapshot():
+        parser = parser_box[0]
+        if parser is not None:
+            cursor.variant_count = parser.variant_count
+        save_population(population, checkpoint_path + ".pop")
+        if info_store is not None:
+            tmp = checkpoint_path + ".info.tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(info_store, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(tmp, checkpoint_path + ".info")
+        cursor.save(checkpoint_path)  # cursor last: publish point
+
+    n_skipped = 0
+    for rec in records:
+        if n_skipped < skip:
+            n_skipped += 1
+            continue
+        yield rec
+        # Control returns here after the parser consumed the record.
+        cursor.fingerprint = combine_hash(
+            cursor.fingerprint, string_hash(_record_key(rec))
+        )
+        cursor.record_count += 1
+        cursor.line_number = rec.line_number
+        if every and cursor.record_count % every == 0:
+            snapshot()
+
+
 def parse_vcf_population(
     path: str,
     population_id: str,
@@ -1238,6 +1329,7 @@ def parse_vcf_population(
     genome_name: Optional[str] = None,
     use_native: Optional[bool] = None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 10_000,
 ) -> Tuple[PopulationDB, VCFHeader, InfoStore]:
     """Parse a VCF into a PopulationDB (ParserSelection::parseData analogue,
     kgl_parser/kgl_variant_factory_parsers.cpp:27-73).
@@ -1250,10 +1342,15 @@ def parse_vcf_population(
     KGT_DISABLE_NATIVE_INGEST=1 (env) turns None into False, the probe for
     native/streaming output parity.
 
-    checkpoint_path names the JAX package's ingest cursor, which this
-    package does not have: it raises."""
+    checkpoint_path: enable the ingest cursor (SURVEY.md section 5 failure
+    recovery). Every `checkpoint_every` records the population + INFO
+    columns snapshot to disk; an interrupted ingest re-invoked with the
+    same checkpoint_path resumes after the last snapshot (prefix verified
+    by rolling fingerprint) and produces the identical population. On
+    completion the cursor, .pop and .info files are removed. Takes the
+    streaming loop, whatever use_native says."""
     if checkpoint_path is not None:
-        raise NotImplementedError("ingest checkpoints are not ported yet")
+        use_native = False
     if use_native is None:
         use_native = (parser_type in _NATIVE_MODES
                       and not os.environ.get("KGT_DISABLE_NATIVE_INGEST"))
@@ -1273,9 +1370,30 @@ def parse_vcf_population(
         break
     info_store = InfoStore(header.info_fields, subscribed_info)
 
+    cursor = None
+    parser_box = [None]
+    if checkpoint_path is not None:
+        from .checkpoint import IngestCursor
+
+        resumed = _try_resume(checkpoint_path, path)
+        if resumed is not None:
+            cursor, population, resumed_info = resumed
+            population.population_id = population_id
+            if resumed_info is not None:
+                info_store = resumed_info
+        else:
+            cursor = IngestCursor(file_path=path)
+
     def chained():
         yield from first
         yield from records
+
+    stream = chained()
+    if cursor is not None:
+        stream = _checkpointed_records(
+            stream, cursor, checkpoint_path, checkpoint_every,
+            population, info_store, parser_box,
+        )
 
     if parser_type == "MONO_GENOME":
         parser = MonoGenomeParser(
@@ -1284,7 +1402,15 @@ def parse_vcf_population(
     else:
         parser_cls = _PARSERS.get(parser_type, PfDiploidParser)
         parser = parser_cls(population, info_store, contig_alias)
-    parser.parse(header, chained())
+    parser_box[0] = parser
+    parser.parse(header, stream)
+    if checkpoint_path is not None:
+        # Completed: the cursor files are no longer needed.
+        for suffix in ("", ".pop", ".info"):
+            try:
+                os.remove(checkpoint_path + suffix)
+            except OSError:
+                pass
     log().info(
         "VCF {}: parsed {} records -> {} variant incidences, {} genomes",
         path, parser.record_count, parser.variant_count, population.genome_count(),

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "kgt_translate": (_P, _I, _I, _I, _P, _P, _P),
     # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, stream
     "kgt_wavefront": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # the same arguments: the local (infix) distance, the shorter row the query
+    "kgt_local": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
     # a, a_stride, Wa, text, text_stride, Wt, la, lb, out, B, band_k, stream
     "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
     # as kgt_myers, with body (1 group, 0 thread, -1 by the rule) before stream

@@ -7,8 +7,10 @@ wrapped by ops/wavefront.batched_levenshtein_kernel, which is what the
 paths call): the route a CPU tensor takes and what the kernel is held
 against at full shapes. The kernel's own word-level algorithm in plain
 PyTorch is ops/wavefront.bitvector_plain.
-batched_levenshtein_local is plain PyTorch on any device, as the JAX
-package computes it outside any Pallas kernel.
+batched_levenshtein_local is the cell-level plain version of kernel
+`local` (csrc/wavefront.cu, wrapped by ops/local.
+batched_levenshtein_local_kernel): the route a CPU tensor takes and the
+oracle the kernel is held against at full shapes.
 """
 
 from __future__ import annotations

@@ -359,7 +359,7 @@ class PopulationDB:
 
     def view_filter(self, filter_obj) -> "PopulationDB":
         """Shallow filtered view (viewFilter); filters are mask predicates
-        (the JAX package's variant/filter.py, not ported yet)."""
+        (variant/filter.py)."""
         return filter_obj.apply_population(self)
 
     def self_filter(self, filter_obj) -> "PopulationDB":

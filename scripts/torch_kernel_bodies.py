@@ -19,9 +19,10 @@ Then, on the card:
   4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
      bases at bands 31 to 255.
 
---quick stops after step 1. --sass writes the machine code of the new bodies and of the
+--quick stops after step 1. --sass writes the machine code of the new bodies, of the
 16 x 16 MICA kernel (csrc/mica.cu, whose instructions a merge step chip_smoke.py's
-MICA_MERGE_OPS counts), as cuobjdump prints it, to chiprun_out/sass_<kernel>.txt first.
+MICA_MERGE_OPS counts) and of B3 and the local kernel at two slots a lane
+(csrc/wavefront.cu), as cuobjdump prints it, to a sass_<kernel>.txt file each first.
 Needs a CUDA device.
 """
 
@@ -158,7 +159,8 @@ def dump_sass():
     for chunk in text.split("\t\tFunction : ")[1:]:
         name = chunk.split("\n", 1)[0]
         for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
-                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "mica_kernelILi16E"):
+                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "mica_kernelILi16E",
+                    "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E"):
             if key in name:
                 with open(os.path.join(out_dir, f"sass_{key}.txt"), "w") as f:
                     f.write(chunk)

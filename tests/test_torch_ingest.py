@@ -11,6 +11,7 @@ parses by its own native record loop by default and by the streaming loop
 when asked, and each is held against both of the JAX package's."""
 
 import gzip
+import os
 import sys
 
 import numpy as np
@@ -166,9 +167,17 @@ def test_fixture_population_equal(fixture_files, which, j_native, t_native):
 
 @pytest.mark.parametrize("parser, kwargs, error", [
     ("GNOMAD_DIPLOID", {"use_native": True}, ValueError),  # no native mode
-    ("PF_DIPLOID", {"checkpoint_path": "ck"}, NotImplementedError),
+    # A checkpoint in a directory that does not exist: the first snapshot
+    # raises, as the JAX package's does.
+    ("PF_DIPLOID", {"checkpoint_path": "no_such_dir/ck", "checkpoint_every": 1},
+     FileNotFoundError),
 ], ids=["kwargs0", "kwargs1"])
 def test_native_and_checkpoint_requests_raise(fixture_files, parser, kwargs, error):
+    if "checkpoint_path" in kwargs:
+        base = os.path.dirname(fixture_files["vcf"])
+        kwargs = dict(kwargs, checkpoint_path=os.path.join(base, kwargs["checkpoint_path"]))
+        with pytest.raises(error):
+            j_parse(fixture_files["vcf"], "pop", parser, **kwargs)
     with pytest.raises(error):
         t_parse(fixture_files["vcf"], "pop", parser, **kwargs)
 

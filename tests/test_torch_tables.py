@@ -124,6 +124,37 @@ def test_port_runs_with_jax_blocked():
         "assert db.self_test()\n"
         "lin = lin_matrix_device(db.information, ['GO:2', 'GO:0008150'], device='cpu')\n"
         "assert lin.shape == (2, 2) and lin[0, 0] == 1.0\n"
+        "import kgl_gene_tpu_torch.sequence.complexity, kgl_gene_tpu_torch.variant.vep\n"
+        "import kgl_gene_tpu_torch.utils.date_time, kgl_gene_tpu_torch.utils.memory\n"
+        "import kgl_gene_tpu_torch.utils.optimize, kgl_gene_tpu_torch.utils.percentile\n"
+        "import kgl_gene_tpu_torch.utils.utility, kgl_gene_tpu_torch.utils.string_hash\n"
+        "import kgl_gene_tpu_torch.io.checkpoint, kgl_gene_tpu_torch.ops.local\n"
+        "from kgl_gene_tpu_torch.analysis.legacy import GenomicMutation, PloidyAnalysis\n"
+        "from kgl_gene_tpu_torch.analysis.legacy import RNAAnalysis\n"
+        "from kgl_gene_tpu_torch.classify import distance as dist\n"
+        "from kgl_gene_tpu_torch.variant import filter as vfilter\n"
+        "from kgl_gene_tpu_torch.variant.columnar import VariantMajorView\n"
+        "from kgl_gene_tpu_torch.io.vcf import parse_vcf_population\n"
+        "from kgl_gene_tpu_torch.io.synthetic import generate_population_files\n"
+        "a = [np.array([0, 1, 2, 3, 0, 1], np.uint8), np.array([2, 3], np.uint8)]\n"
+        "b = [np.array([1, 2, 3, 0], np.uint8), np.array([0, 2, 3, 1], np.uint8)]\n"
+        "assert dist.batched_metric(dist.levenshtein_local_coding, a, b, device='cpu').tolist()"
+        " == [0, 0]\n"
+        "assert dist.batched_metric(dist.levenshtein_global_coding, a, b, device='cpu').tolist()"
+        " == [2, 2]\n"
+        "d = tempfile.mkdtemp()\n"
+        "paths = generate_population_files(d, n_samples=4, contig_len=12_000, n_genes=1,\n"
+        "                                  n_records=60, coding_len=300, seed=2, snp_only=False)\n"
+        "ck = os.path.join(d, 'ck.json')\n"
+        "pop, _, info = parse_vcf_population(paths.vcf, 'p', checkpoint_path=ck,\n"
+        "                                    checkpoint_every=7)\n"
+        "assert pop.variant_count() == parse_vcf_population(paths.vcf, 'p')[0].variant_count()\n"
+        "assert not os.path.exists(ck) and not os.path.exists(ck + '.pop')\n"
+        "snps = pop.view_filter(vfilter.SNPFilter() & vfilter.PassFilter())\n"
+        "assert 0 < snps.variant_count() < pop.variant_count()\n"
+        "ploidy = PloidyAnalysis()\n"
+        "ploidy.add_population(VariantMajorView(pop))\n"
+        "assert len(ploidy.genome_data) == pop.genome_count()\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"
