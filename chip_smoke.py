@@ -65,24 +65,32 @@ and read just after where it launches a kernel:
      (plain PyTorch too: the JAX package runs lax.scan programs there);
   6. the ontology (phase 3f): the MICA kernel (csrc/mica.cu) against
      mica_plain on seeded ancestor lists (K = 64 and 192 ascending, K = 100
-     in IC order, n = 1 and 257, two row sets, K = 1,000), then a seeded
+     in IC order, n = 1 and 257, two row sets, K = 1,000, empty rows,
+     lengths from 0 to 256 mixed in one set, compact rows built on the
+     host through mica_rows), then a seeded
      OBO of GO's size (write_go_obo: 43,000 terms in GO's three namespaces,
      depth >= 15; a synthetic shape, not checked against a GO release) and
      a GAF of 5,300 genes (write_go_gaf) through
      parse_go_file, GoGraph, TermAnnotation.from_gaf_file,
      InformationContent, ancestor_lists and lin_matrix_device /
-     mica_matrix_device over the annotated biological_process terms (at
+     mica_matrix_device (rows from ancestor_rows, one pass over the
+     ancestor bitsets) over the annotated biological_process terms (at
      most 8,192; K >= 192). It fails unless the kernel launched, its matrix
      equals mica_plain's on the card bit for bit (a 2,048-row block when
      the whole would take the plain version over 60 s), lin_matrix_device
      on 128 terms equals its CPU run and lies within 1e-6 of the host
      SimilarityLin, and OntologyDatabase on the full OBO with the GAF cut
      to 300 genes passes self_test and gives a 32-gene matrix. It prints
-     the host stages, the kernel's time (CUDA events and a graph replay)
-     beside its byte and merge issue bounds (the merge steps each pair's
-     two real lists need, counted by mica_work, at MICA_STEP_OPS
-     instructions) and the design's own count (a warp's lane slots at the
-     merge loop's MICA_MERGE_OPS), the plain version's seconds, peak
+     the host stages, the kernel's time (CUDA events and a graph replay) on
+     the path's compact rows and through the padded wrapper, and the first
+     design (kgt_mica_tiles, held equal; scripts/torch_kernel_bodies.py)
+     in the same windows, its kernel on rows sorted before the window and
+     its wrapper with the sort, beside the byte and merge issue bounds (the
+     merge steps each pair's two real lists need, counted by mica_work, at
+     MICA_STEP_OPS instructions at the rate an SM dispatches instructions)
+     and the design's own count (the warp rounds' lane slots at the merge
+     loop's MICA_MERGE_OPS, at the same rate), its tile, shared memory and
+     blocks an SM, the plain version's seconds, peak
      device memory and the generated ontology's shape (edges by relation,
      depth, ancestors a term, annotated BP terms);
   7. the checkpointed ingest and the local metric (phase 3g): phase 3c's
@@ -115,7 +123,14 @@ family's shape and on the wide-edit pairs. The local kernel is held
 against its word-level and cell-level plain versions on ragged pairs in
 both orders, a shared row, codes negative and >= 32, lq == lt, pads that
 copy the query, the 64-row block and 2,048-row slot edges, queries of one
-and several 4,096-row stripes up to 5,000 rows and 12,300-wide rows.
+and several 4,096-row stripes up to 5,000 rows and 12,300-wide rows, and
+the pad rows ahead of a query (lq = 1, 63, 65 and multiples of 64 to
+12,288, codes outside 0..31). The local rows are timed in turns with B3 on
+the same pairs. The walk's row also carries a latency bound: each pair's
+live steps at the L2 hit latency where the step reads a line new to its
+warp and at the L1 hit latency otherwise, its trips after the end at two
+stores a cycle each, the longest pair's sum; the latencies come from a
+pointer chase of one thread (csrc/chase.cu).
 
 Then it times the step, the family path and each kernel; the family
 path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
@@ -140,7 +155,8 @@ sizes, checks and the MICA kernel's times and bounds), one
 B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
-issue floor, and it carries design_issue_ms), the card's
+issue floor, and it carries design_issue_ms; the walk's carries
+latency_bound_ms), the card's
 name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -173,6 +189,9 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # kernel a floor (Hopper issues int32 at half that rate).
 OPS_PER_S = 67e12
 INT_LANES_PER_SM = 64  # an H100 SM issues 64 int32 operations a cycle, no fused pair
+# An H100 SM's four schedulers dispatch one warp instruction a cycle each:
+# 128 lanes a cycle, whatever pipes the instructions go to.
+DISPATCH_LANES_PER_SM = 128
 MYERS_OPS_PER_BLOCK_COLUMN = 34  # 17 word ops of 64 bits, two int32 ops each
 WAVEFRONT_OPS_PER_CELL = 6       # compare, 2 adds, 2 mins, store select
 # Banded row DP per cell: compare, two adds and a min for base, an add and
@@ -180,6 +199,13 @@ WAVEFRONT_OPS_PER_CELL = 6       # compare, 2 adds, 2 mins, store select
 # codes add two compares, three selects and the run's min and add.
 BANDED_OPS_PER_CELL = 8
 BANDED_CHOICES_OPS_PER_CELL = 15
+# The walk's latency bound: the pointer chase that reads the L1 and L2 hit
+# latencies (a cycle of 128-byte lines over these bytes), and the two tape
+# stores a trip after a pair's end.
+CHASE_L1_BYTES = 16 << 10
+CHASE_L2_BYTES = 8 << 20
+CHASE_HOPS = 100_000
+WALK_STORES_PER_TRIP = 2
 FAMILY_LOCAL_RECORDS = 16  # the local metric's plain CPU run is slow at 3 kb
 # The product path at bench.py's end-to-end shape (bench.py:139-142 and
 # :152): 256 samples, four single-exon genes of 3,000 coding bases on a
@@ -248,14 +274,18 @@ GO_DB_GENES = 300  # the one cut: OntologyDatabase's host cache is O(n^2 terms) 
 GO_DB_MATRIX = 32
 MICA_PLAIN_LIMIT_S = 60.0  # above it the plain version holds a 2,048-row block
 # The fewest instructions a merge step needs (two loads, a compare, two
-# advances, the max-min): the price of a step in the mica bound.
+# advances, the max-min): the price of a step in the mica bound, at the
+# dispatch rate (DISPATCH_LANES_PER_SM).
 MICA_STEP_OPS = 6
-# Instructions of one step of the kernel's merge loop (two 8-byte shared
-# loads, three compares, two selects, four pointer adds, the predicated
-# max-min, the loop test), as ptxas compiled mica_kernel<16> for sm_90a
-# (cuobjdump -sass of the library): the price in the design's own count.
-MICA_MERGE_OPS = 16
-MICA_TILE = 16
+# Instructions a merge step of the kernel's loop issues: half of the 39 of
+# one trip of two steps (each two predicated 8-byte shared loads, five
+# compares, the pointer adds and their selects, the predicated max-min,
+# register moves) with its test of the heads and branch, as ptxas compiled
+# mica_rows_kernel for sm_90a (cuobjdump -sass of the library,
+# scripts/torch_kernel_bodies.py --sass): the price of a lane slot in the
+# design's own count, at the same rate.
+MICA_MERGE_OPS = 19.5
+MICA_TILE = 64  # csrc/mica.cu's tile of rows at phase 3f's shape
 
 
 # Phase 3g: the checkpointed ingest of phase 3c's VCF and the local metric
@@ -279,19 +309,24 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def int_issue_rate():
-    """Integer operations a second the card can issue: 64 lanes an SM, the
-    SM count from the device properties, the SM clock's maximum from
-    nvidia-smi. The float32 rate behind bound_ms counts 128 lanes and a
-    fused multiply-add as two, so it is 4x this."""
-    import torch
-
+def sm_max_clock_hz():
+    """The SM clock's maximum, from nvidia-smi."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    mhz = float(out.stdout.strip().splitlines()[0])
-    return INT_LANES_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def issue_rate(lanes=INT_LANES_PER_SM):
+    """Operations a second the card can issue at `lanes` lanes an SM (64:
+    the int32 pipe; DISPATCH_LANES_PER_SM: any mix of pipes), the SM count
+    from the device properties, the SM clock's maximum. The float32 rate
+    behind bound_ms counts 128 lanes and a fused multiply-add as two, so it
+    is 4x the int32 rate."""
+    import torch
+
+    return lanes * torch.cuda.get_device_properties(0).multi_processor_count * sm_max_clock_hz()
 
 
 def time_cuda_turns(fns, iters, windows=5, warm=True):
@@ -956,6 +991,22 @@ def local_kernel_cases(dev, errs):
     # Dynamic shared memory above 48 KB: 193 blocks of match words.
     a, la, b, lb = local_pair_set(rng, [(12300, 12290), (12000, 12300)])
     held("M=12,300 (dynamic shared memory above 48 KB, three stripes)", a, la, b, lb)
+    # The pad rows ahead of the query (pad = -lq mod 64): queries of 1, 63
+    # and 65 rows and multiples of 64, in one stripe and in several (to
+    # 12,300 rows), with a tenth of the codes outside 0..31 (match words
+    # built on the spot, pad bits included), both orders.
+    lengths = [(1, 90), (63, 400), (65, 65), (64, 300), (128, 129), (640, 700), (1984, 2100),
+               (4032, 4100), (8192, 8300), (12288, 12300), (12289, 12300), (1, 1)]
+    a, la, b, lb = local_pair_set(rng, lengths)
+    for x in (a, b):
+        odd = rng.random(x.shape) < 0.1
+        x[odd] = rng.choice(pool, int(odd.sum()))
+    held("pad rows: lq = 1, 63, 65 and multiples of 64 to 12,288, odd codes", a, la, b, lb,
+         cell=False)
+    held("the same, the other order", b, lb, a, la, cell=False)
+    small = la < 700
+    held("the queries to 640 rows against the cell-level version too", a[small][:, :700],
+         la[small], b[small][:, :700], lb[small])
     for name, rows, wa, wb in (("Ma = 0", 3, 0, 7), ("Mb = 0", 3, 7, 0), ("B = 0", 0, 7, 7)):
         held(name, rng.integers(0, 4, (rows, wa)), np.full(rows, wa), rng.integers(0, 4, (rows, wb)),
              np.full(rows, wb))
@@ -1265,6 +1316,83 @@ def phase_wide_cigars(dev, errs):
             raise AssertionError("a CIGAR does not span both sequences")
 
 
+def load_latency_ns(dev, windows=3):
+    """{"l1_ns", "l2_ns"}: the ns of one dependent load, a hop of kernel
+    kgt_chase (csrc/chase.cu): one thread over a random cycle of 128-byte
+    lines, CHASE_L1_BYTES with loads that cache in the L1, CHASE_L2_BYTES
+    with loads that skip it. The median over `windows` of the difference
+    between 2 * h and h hops, over h, so the launch drops out."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+
+    rng = np.random.default_rng(SEED)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = {}
+    for key, nbytes, l2_only, hops in (("l1_ns", CHASE_L1_BYTES, 0, CHASE_HOPS),
+                                       ("l2_ns", CHASE_L2_BYTES, 1, CHASE_HOPS)):
+        words = nbytes // 4
+        lines = np.r_[0, rng.permutation(np.arange(1, words // 32))] * 32
+        nxt = np.zeros(words, np.uint32)
+        nxt[lines] = np.roll(lines, -1)
+        nxt_t = torch.as_tensor(nxt.view(np.int32), device=dev)
+
+        def chase(h):
+            kernels.launch("chase", "kgt_chase", nxt_t.device, nxt_t.data_ptr(), h, l2_only,
+                           out.data_ptr())
+
+        chase(2 * hops)
+        torch.cuda.synchronize()
+        per = []
+        for _ in range(windows):
+            ms = []
+            for h in (hops, 2 * hops):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                chase(h)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            per.append((ms[1] - ms[0]) / hops * 1e6)
+        got[key] = statistics.median(per)
+    return got
+
+
+def walk_new_lines(codes, la, lb, band_k, ops, counts):
+    """(new, live): for each pair of a walk (csrc/walk.cu's arithmetic,
+    replayed from its tapes), its live steps, and those whose code byte
+    lies on a 128-byte line that no pair of its warp (32 pairs) read at an
+    earlier step, as numpy arrays."""
+    M, B, W = codes.shape
+    rs, ps = codes.stride(0), codes.stride(1)
+    ops, counts = ops.cpu().numpy(), counts.cpu().numpy()
+    i = np.maximum(la.cpu().numpy().astype(np.int64), 0)
+    j = np.maximum(lb.cpu().numpy().astype(np.int64), 0)
+    pair = np.arange(B)
+    keys, steps = [], []
+    for s in range(ops.shape[1]):
+        live = ops[:, s] != 0
+        c = np.clip(j - i + band_k, 0, W - 1)
+        row = np.clip(i - 1, 0, M - 1)
+        line = (codes.data_ptr() + row * rs + pair * ps + c) // 128
+        keys.append(np.where(live, (pair // 32) * (1 << 48) + line, -1))
+        steps.append(np.full(B, s))
+        cnt = counts[:, s].astype(np.int64)
+        i = i - np.where(live & (ops[:, s] != 4), cnt, 0)  # every op but left moves up
+        j = j - np.where(live & (ops[:, s] != 3), cnt, 0)  # every op but up moves left
+    if ((i != 0) | (j != 0))[ops[:, -1] == 0].any():
+        raise AssertionError("the replay of the walk's tapes ends away from (0, 0)")
+    keys, steps = np.stack(keys, 1), np.stack(steps, 1)
+    live = keys >= 0
+    _uniq, inv = np.unique(keys[live], return_inverse=True)
+    first = np.full(len(_uniq), ops.shape[1])
+    np.minimum.at(first, inv, steps[live])
+    new = np.zeros_like(live)
+    new[live] = first[inv] == steps[live]
+    return new.sum(1), live.sum(1)
+
+
 def bound(ops, nbytes):
     """(bound_ms, bound_by): the larger of the operation and byte floors."""
     t_ops, t_bytes = ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S
@@ -1434,12 +1562,36 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     d_ms = time_device([walk], 10)
     p_ms = time_cuda(walk_plain, 1, windows=3, warm=False)
     b_ms, by = bound(20 * live, 32 * live + n * steps * 5 + 2 * n * 4)
+    # Its latency bound, from the card's load latencies (load_latency_ns):
+    # each live step's byte is a load whose address the step before
+    # computed. A step reading a 128-byte line that no pair of its warp
+    # read at an earlier step pays the L2 hit latency at least (the codes
+    # came from another launch, so the SM's L1 holds none of them), any
+    # other the L1 hit latency; the trips after a pair's end only store
+    # its two tape entries, at one instruction a cycle. Pairs run side by
+    # side, so the walk takes at least its longest pair's sum.
+    lat = load_latency_ns(dev)
+    new_lines, live_p = walk_new_lines(codes, rl, plens, k, got[0], got[1])
+    per_pair = ((new_lines * lat["l2_ns"] + (live_p - new_lines) * lat["l1_ns"]) * 1e-6
+                + (steps - live_p) * WALK_STORES_PER_TRIP / sm_max_clock_hz() * 1e3)
+    worst = int(per_pair.argmax())
+    latency_ms = float(per_pair[worst])
+    one = functools.partial(tb_walk, codes[:, worst:worst + 1], rl[worst:worst + 1],
+                            plens[worst:worst + 1], band_k=k, max_steps=steps)
+    exact("walk of the bound's pair alone, the same tapes", one()[0], got[0][worst:worst + 1])
     log(f"  walk kernel B={n}, k={k}, {steps} steps, {live} live steps ({live / n:.1f} a pair): "
-        f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; plain PyTorch loop {p_ms:.6f} ms")
+        f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; plain PyTorch loop {p_ms:.6f} ms; "
+        f"load latency L1 {lat['l1_ns']:.2f} ns, L2 {lat['l2_ns']:.2f} ns (pointer chase); "
+        f"latency bound {latency_ms:.6f} ms (pair {worst}: {int(live_p[worst])} live steps, "
+        f"{int(new_lines[worst])} of them to a new line; {latency_ms / d_ms:.1%} of the device "
+        f"time)")
     rows.append(dict(name="walk", source="kgl_gene_tpu_torch/csrc/walk.cu",
                      replaces="kgl_gene_tpu/ops/traceback.py:45",
                      shape=f"B={n}, k={k}, {steps} steps, {live} live", ms=ms, device_ms=d_ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live))
+                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live,
+                     latency_bound_ms=latency_ms, l1_latency_ns=lat["l1_ns"],
+                     l2_latency_ns=lat["l2_ns"], latency_pair_live_steps=int(live_p[worst]),
+                     latency_pair_new_lines=int(new_lines[worst])))
     del codes, got, want
 
     fam = TranscriptFamilyAnalysis(records, ref, device=dev)
@@ -1675,6 +1827,7 @@ def phase_local_times(dev, state, errs):
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein_local
     from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel
+    from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
 
     seqs, lens, fam = state["seqs"], state["lens"], state["fam"]
     n = seqs.shape[0]
@@ -1692,17 +1845,21 @@ def phase_local_times(dev, state, errs):
 
     kern = functools.partial(batched_levenshtein_local_kernel, pool, plens, ref_t, rl)
     plain = functools.partial(batched_levenshtein_local, pool, plens, ref_t, rl)
-    ms, p_ms = checked_times(f"local kernel (B={n}, S={S}, one shared reference row)", "local",
-                             errs, kern, plain, 20)
-    d_ms = time_device([kern], 20)
+    b3 = functools.partial(batched_levenshtein_kernel, pool, plens, ref_t, rl)
+    _ms, p_ms = checked_times(f"local kernel (B={n}, S={S}, one shared reference row)", "local",
+                              errs, kern, plain, 20)
+    ms, b3_ms = time_cuda_turns([kern, b3], 20)
+    d_ms, b3_d_ms = (time_device([fn], 20) for fn in (kern, b3))
     ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens, np.full(n, ref_len[0]))
     b_ms, by = bound(ops, pool.numel() * 4 + ref_t.numel() * 4 + 3 * n * 4)
-    log(f"  local kernel B={n} shared reference: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; "
-        f"plain (cell-level) {p_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
+    log(f"  local kernel B={n} shared reference: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device "
+        f"(B3 at this shape in turns: {b3_ms:.6f} / {b3_d_ms:.6f} ms); plain (cell-level) "
+        f"{p_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
     rows.append(dict(name="local", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
                      replaces="kgl_gene_tpu/ops/edit_distance.py:89",
                      shape=f"B={n}, S={S}, one shared reference row", ms=ms, device_ms=d_ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=ops))
+                     b3_ms=b3_ms, b3_device_ms=b3_d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
+                     int_ops=ops))
 
     iu, ju = np.triu_indices(n, k=1)
     P = len(iu)
@@ -1710,19 +1867,23 @@ def phase_local_times(dev, state, errs):
     pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
     pla, plb = plens.index_select(0, iu_t), plens.index_select(0, ju_t)
     kern = functools.partial(batched_levenshtein_local_kernel, pa, pla, pb, plb)
+    b3 = functools.partial(batched_levenshtein_kernel, pa, pla, pb, plb)
     errs["local_pool"] = max(errs["local_pool"], exact(
         f"local kernel (P={P} all pairs, S={S}) vs phase 3g's matrix", kern(),
         torch.as_tensor(state["d_kernel"])))
-    ms = time_cuda(kern, 3, windows=3)
-    d_ms = time_device([kern], 3)
+    ms, b3_ms = time_cuda_turns([kern, b3], 3, windows=3)
+    d_ms, b3_d_ms = (time_device([fn], 3) for fn in (kern, b3))
     ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens[iu], lens[ju])
     b_ms, by = bound(ops, 2 * pa.numel() * 4 + 3 * P * 4)
     held, plain_s = state["plain_pairs_s"]
-    log(f"  local kernel P={P} all pairs: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; "
-        f"bound {b_ms:.6f} ms ({by}); the plain version {plain_s * 1e3:.3f} ms for {held} pairs")
+    log(f"  local kernel P={P} all pairs: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device "
+        f"(B3 over the same pairs in turns: {b3_ms:.6f} / {b3_d_ms:.6f} ms, local / B3 "
+        f"{ms / b3_ms:.3f}); bound {b_ms:.6f} ms ({by}); the plain version "
+        f"{plain_s * 1e3:.3f} ms for {held} pairs")
     rows.append(dict(name="local_pool", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
                      replaces="kgl_gene_tpu/ops/edit_distance.py:89",
                      shape=f"P={P} all pairs, S={S}, per-pair rows", ms=ms, device_ms=d_ms,
+                     b3_ms=b3_ms, b3_device_ms=b3_d_ms,
                      plain_ms=plain_s * 1e3, plain_pairs=held, bound_ms=b_ms, bound_by=by,
                      int_ops=ops))
     del pa, pb
@@ -2688,18 +2849,21 @@ def torch_equal(a, b):
 def mica_cases(dev, errs):
     """The MICA kernel against mica_plain on seeded ancestor lists: sorted
     rows at K = 64 and 192, IC-ordered rows at K = 100, one row, 257 rows,
-    two different row sets (K 64 and 192), and K = 1,000 (a smaller tile)."""
+    two different row sets (K 64 and 192), K = 1,000 (a smaller tile),
+    rows of length 0, and lengths from 0 to K in one set (the local order),
+    through the padded wrapper (rows_on_card) and through mica_rows on
+    compact rows built on the host."""
     import torch
 
-    from kgl_gene_tpu_torch.ops.similarity import mica, mica_plain
+    from kgl_gene_tpu_torch.ops.similarity import mica, mica_plain, mica_rows, row_set
 
     rng = np.random.default_rng(SEED + 10)
 
-    def lists(n, K, ic_order=False):
+    def lists(n, K, ic_order=False, lengths=None):
         ids = np.full((n, K), -1, np.int32)
         ic = np.zeros((n, K), np.float32)
         for r in range(n):
-            L = int(rng.integers(0, K + 1))
+            L = int(rng.integers(0, K + 1)) if lengths is None else int(lengths[r])
             row = rng.choice(3 * K, L, replace=False).astype(np.int32)
             val = (rng.random(L) * 8).astype(np.float32)
             order = np.argsort(val)[::-1] if ic_order else np.argsort(row)
@@ -2722,6 +2886,32 @@ def mica_cases(dev, errs):
     torch.cuda.synchronize()
     errs["mica"] = max(errs["mica"], same_floats(
         "mica i != j (200 x 64 against 333 x 192)", got, mica_plain(ids_i, ic_i, ids_j, ic_j)))
+    # Lengths that vary widely in every tile (0, 1-3 and 150-256 mixed,
+    # so the local order moves rows), a tenth of the rows empty.
+    lengths = np.where(rng.random(700) < 0.5, rng.integers(0, 4, 700), rng.integers(150, 257, 700))
+    lengths[rng.random(700) < 0.1] = 0
+    ids, ic = lists(700, 256, lengths=lengths)
+    got = mica(ids, ic)
+    torch.cuda.synchronize()
+    errs["mica"] = max(errs["mica"], same_floats(
+        "mica lengths 0-3 and 150-256 mixed, 10% empty (n = 700, K = 256)", got,
+        mica_plain(ids, ic, ids, ic)))
+    empty = torch.full((70, 64), -1, dtype=torch.int32, device=dev)
+    errs["mica"] = max(errs["mica"], same_floats(
+        "mica every row empty (n = 70)", mica(empty, torch.zeros_like(empty, dtype=torch.float32)),
+        torch.zeros(70, 70)))
+    # mica_rows on compact rows made on the host, one and two row sets.
+    ids_np, ic_np = ids.cpu().numpy(), ic.cpu().numpy()
+    order = np.argsort(np.where(ids_np < 0, np.iinfo(np.int32).max, ids_np), axis=1, kind="stable")
+    srt, val = np.take_along_axis(ids_np, order, 1), np.take_along_axis(ic_np, order, 1)
+    offsets = np.r_[0, np.cumsum((srt >= 0).sum(1))]
+    rows = row_set(offsets, srt[srt >= 0], val[srt >= 0], dev)
+    errs["mica"] = max(errs["mica"], same_floats(
+        "mica_rows on host-built rows (n = 700)", mica_rows(rows), mica_plain(ids, ic, ids, ic)))
+    half = row_set(offsets[:301], srt[:300][srt[:300] >= 0], val[:300][srt[:300] >= 0], dev)
+    errs["mica"] = max(errs["mica"], same_floats(
+        "mica_rows i != j (300 against 700 rows)", mica_rows(half, rows),
+        mica_plain(ids[:300], ic[:300], ids, ic)))
 
 
 def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
@@ -2730,9 +2920,12 @@ def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
     blocks of `rows` rows. A merge of two id-sorted lists ends with the
     list whose last id m is smaller, so a pair takes #ids_i <= m + #ids_j
     <= m - |common| steps, a match moving both; the least work merges each
-    unordered pair once. The kernel runs the upper triangle of tile x tile
-    blocks; a warp holds 32 // tile rows i against tile rows j (tile >= 8)
-    and issues for its 32 lanes as long as its longest pair."""
+    unordered pair once. The kernel (csrc/mica.cu) runs the upper triangle
+    of tile x tile blocks, orders each tile's rows by (length, row), and a
+    warp runs rounds of 8 x 4 neighbouring pairs of that order (min(8,
+    tile) x min(4, tile)), each round as long as its longest pair at two
+    steps a loop trip (ceil(steps / 2) trips): the slots are 32 lanes x 2
+    steps x those trips, summed."""
     import torch
 
     t = torch.as_tensor(ids, device=dev).long()
@@ -2744,8 +2937,18 @@ def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
     uniq, col = torch.unique(t[valid], return_inverse=True)
     member = torch.zeros(n, len(uniq), device=dev)
     member[valid.nonzero()[:, 0], col] = 1.0
-    nt, lanes = -(-n // tile), 32 // tile
-    jj, tj = torch.arange(n, device=dev), torch.arange(nt, device=dev)
+    nt = -(-n // tile)
+    npad = nt * tile
+    si, sj = min(8, tile), min(4, tile)
+    # The kernel's local order: each tile's rows by (length, row), rows past
+    # n of length 0; order[q] is the row at place q (>= n: no row).
+    at = torch.arange(npad, device=dev)
+    lens_p = torch.zeros(npad, dtype=torch.long, device=dev)
+    lens_p[:n] = lens
+    order = torch.sort((at // tile) * (npad + 1) * tile + lens_p * tile + at % tile).indices
+    real = order < n
+    cols = order.clamp(max=n - 1)
+    tj = torch.arange(nt, device=dev)
     rows = max(tile, rows // tile * tile)
     least = slots = 0
     for i0 in range(0, n, rows):
@@ -2754,15 +2957,34 @@ def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
         steps = (torch.searchsorted(key[i0:i1], m, right=True)
                  + torch.searchsorted(key, m.T.contiguous(), right=True).T
                  - (member[i0:i1] @ member.T).round().long())
-        least += int(steps.masked_fill(jj[None] < torch.arange(i0, i1, device=dev)[:, None],
-                                       0).sum())
-        pad = torch.zeros(-(-(i1 - i0) // tile) * tile, nt * tile, dtype=torch.long,
-                          device=dev)
-        pad[: i1 - i0, :n] = steps
-        warp = pad.view(-1, tile // lanes, lanes, nt, tile).amax(dim=(2, 4)).sum(1)
-        ti = torch.arange(i0 // tile, i0 // tile + len(warp), device=dev)
-        slots += 32 * int(warp.masked_fill(tj[None] < ti[:, None], 0).sum())
+        least += int(steps.masked_fill(torch.arange(n, device=dev)[None]
+                                       < torch.arange(i0, i1, device=dev)[:, None], 0).sum())
+    for q0 in range(0, npad, rows):
+        q1 = min(npad, q0 + rows)
+        ri, rmask = cols[q0:q1], real[q0:q1]
+        m = torch.minimum(top[ri, None], top[None, cols])
+        steps = (torch.searchsorted(key[ri], m, right=True)
+                 + torch.searchsorted(key[cols], m.T.contiguous(), right=True).T
+                 - (member[ri] @ member[cols].T).round().long())
+        trips = ((steps + 1) // 2).masked_fill(~(rmask[:, None] & real[None, :]), 0)
+        rnd = trips.view(-1, tile // si, si, nt, tile // sj, sj).amax(dim=(2, 5)).sum(dim=(1, 3))
+        ti = torch.arange(q0 // tile, q0 // tile + len(rnd), device=dev)
+        slots += 2 * 32 * int(rnd.masked_fill(tj[None] < ti[:, None], 0).sum())
     return float(least), float(slots)
+
+
+def kernel_bodies():
+    """scripts/torch_kernel_bodies.py as a module: the first MICA design's
+    launch and wrapper live there. The script imports nothing of this one
+    at its top, so loading it here runs no second copy."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "torch_kernel_bodies.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_bodies", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def phase_ontology(dev, workdir, errs):
@@ -2779,7 +3001,8 @@ def phase_ontology(dev, workdir, errs):
     from kgl_gene_tpu_torch.ontology.obo import parse_go_file
     from kgl_gene_tpu_torch.ontology.similarity import SimilarityLin
     from kgl_gene_tpu_torch.ops.similarity import (
-        ancestor_lists, lin_matrix_device, mica, mica_matrix_device, mica_plain,
+        ancestor_lists, ancestor_rows, id_order, lin_matrix_device, mica, mica_matrix_device,
+        mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
     )
 
     torch.cuda.reset_peak_memory_stats()
@@ -2918,23 +3141,61 @@ def phase_ontology(dev, workdir, errs):
         f"{len(sample)} x {len(sample)} gene matrix over a cache of "
         f"{out['database_cache_terms']} BP terms in {out['database_s']:.2f} s")
 
-    # Times of the kernel at the path's shape.
-    call = functools.partial(mica, ids_t, ic_t)
-    ms = time_cuda(call, 5, windows=3)
-    device_ms = time_device([call], 5, windows=3)
+    # Times of the kernel at the path's shape: on the compact rows the path
+    # builds (ancestor_rows), through the padded wrapper (rows_on_card
+    # first), and the first design (kgt_mica_tiles) in the same windows:
+    # its kernel on rows put through id_order outside the window (kernel
+    # against kernel) and its wrapper with the sort (wrapper against the
+    # padded wrapper).
+    t0 = time.perf_counter()
+    offsets, r_ids, r_ic = ancestor_rows(info, idxs)
+    out["ancestor_rows_s"] = time.perf_counter() - t0
+    rows = row_set(offsets, r_ids, r_ic, dev)
+    bodies = kernel_bodies()
+    ordered = id_order(ids_t, ic_t)
+    errs["mica"] = max(errs["mica"], same_floats(
+        f"mica_rows on the path's rows vs the padded wrapper (n = {n})", mica_rows(rows),
+        mica(ids_t, ic_t)))
+    errs["mica"] = max(errs["mica"], same_floats(
+        f"the first design (kgt_mica_tiles) vs the padded wrapper (n = {n})",
+        bodies.mica_first_design(ids_t, ic_t), mica(ids_t, ic_t)))
+    call = functools.partial(mica_rows, rows)
+    padded = functools.partial(mica, ids_t, ic_t)
+    first = functools.partial(bodies.mica_tiles, *ordered)
+    first_wrapper = functools.partial(bodies.mica_first_design, ids_t, ic_t)
+    ms, padded_ms, first_ms, first_wrapper_ms = time_cuda_turns(
+        [call, padded, first, first_wrapper], 5, windows=3)
+    device_ms, first_device_ms = (time_device([fn], 5, windows=3) for fn in (call, first))
     least, slots = mica_work(ids, dev)
-    issue_rate = int_issue_rate()
+    # The step's instructions go to several pipes (shared loads, integer
+    # compares and selects, a float min and max, moves), so both counts are
+    # priced at the rate an SM dispatches instructions of any pipe.
+    rate = issue_rate(DISPATCH_LANES_PER_SM)
+    lib = kernels.library()
+    tile, entries = mica_tile(offsets, offsets, True)
     byte_ms = (ids.nbytes + vals.nbytes + 4 * n * n) / MEM_BYTES_PER_S * 1e3
-    issue_ms = least * MICA_STEP_OPS / issue_rate * 1e3
-    out.update(kernel_ms=ms, kernel_device_ms=device_ms, plain_ms=plain_s * 1e3,
-               bytes_bound_ms=byte_ms, merge_issue_bound_ms=issue_ms, merge_steps=least,
-               design_merge_lane_slots=slots,
-               design_issue_ms=slots * MICA_MERGE_OPS / issue_rate * 1e3,
+    issue_ms = least * MICA_STEP_OPS / rate * 1e3
+    out.update(kernel_ms=ms, kernel_device_ms=device_ms, padded_wrapper_ms=padded_ms,
+               first_design_ms=first_ms, first_design_device_ms=first_device_ms,
+               first_design_wrapper_ms=first_wrapper_ms,
+               plain_ms=plain_s * 1e3, bytes_bound_ms=byte_ms, merge_issue_bound_ms=issue_ms,
+               merge_steps=least, design_merge_lane_slots=slots, lane_slot_ratio=slots / least,
+               design_issue_ms=slots * MICA_MERGE_OPS / rate * 1e3,
+               tile=tile, tile_entries=entries, smem_bytes=mica_smem_bytes(tile, entries),
+               blocks_per_sm=lib.kgt_mica_occupancy(tile, entries),
+               first_design_blocks_per_sm=lib.kgt_mica_tiles_occupancy(K),
                cuda_max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"  mica kernel n = {n}, K = {K}: {ms:.4f} ms host-inclusive, device {device_ms:.4f} ms; "
-        f"bounds: bytes {byte_ms:.4f} ms, merge issue {issue_ms:.4f} ms ({least:.4g} steps x "
-        f"{MICA_STEP_OPS}); the design's count {out['design_issue_ms']:.4f} ms ({slots:.4g} "
-        f"lane slots x {MICA_MERGE_OPS}); device memory at most "
+        f"the first design's kernel on id-ordered rows {first_ms:.4f} ms, device "
+        f"{first_device_ms:.4f} ms ({first_ms / ms:.3f}x); the padded wrapper {padded_ms:.4f} "
+        f"ms against the first design's wrapper {first_wrapper_ms:.4f} ms "
+        f"({first_wrapper_ms / padded_ms:.3f}x); bounds: bytes {byte_ms:.4f} ms, merge issue "
+        f"{issue_ms:.4f} ms ({least:.4g} steps x {MICA_STEP_OPS} at {rate / 1e12:.3f} T/s, "
+        f"{DISPATCH_LANES_PER_SM} lanes x SMs x max SM clock); the design's count "
+        f"{out['design_issue_ms']:.4f} ms ({slots:.4g} lane slots, {slots / least:.3f} x the "
+        f"steps, x {MICA_MERGE_OPS}); tile {tile}, {entries} entries, "
+        f"{out['smem_bytes']} B of shared memory, {out['blocks_per_sm']} blocks an SM (the first "
+        f"design {out['first_design_blocks_per_sm']}); device memory at most "
         f"{out['cuda_max_memory_gb']:.3f} GB")
     # Rows out of id order at the same scale: lists cut to the top 64 by
     # IC, each cut row in descending IC order, sorted by the wrapper.
@@ -2950,7 +3211,7 @@ def phase_ontology(dev, workdir, errs):
     out.update(cut64_kernel_ms=time_cuda(functools.partial(mica, *cut_t), 5, windows=3),
                cut64_rows_out_of_order=int(((np.diff(cut_ids, axis=1) <= 0)
                                             & (cut_ids[:, 1:] >= 0)).any(1).sum()),
-               cut64_design_issue_ms=cut_slots * MICA_MERGE_OPS / issue_rate * 1e3)
+               cut64_design_issue_ms=cut_slots * MICA_MERGE_OPS / rate * 1e3)
     log(f"  mica kernel on the lists cut to 64 ({out['cut64_rows_out_of_order']} rows out of "
         f"id order): {out['cut64_kernel_ms']:.4f} ms host-inclusive, the design's count "
         f"{out['cut64_design_issue_ms']:.4f} ms")
@@ -2961,8 +3222,11 @@ def phase_ontology(dev, workdir, errs):
            "plain_ms": plain_s * 1e3, "plain_rows": rows_held,
            "bound_ms": max(byte_ms, issue_ms),
            "bound_by": "operations" if issue_ms >= byte_ms else "bytes",
-           "library_ms": None, "int_ops": least * MICA_STEP_OPS,
-           "design_issue_ms": out["design_issue_ms"]}
+           "library_ms": None, "issue_bound_ms": issue_ms,
+           "design_issue_ms": out["design_issue_ms"], "lane_slot_ratio": slots / least,
+           "blocks_per_sm": out["blocks_per_sm"], "first_design_ms": first_ms,
+           "first_design_device_ms": first_device_ms,
+           "first_design_wrapper_ms": first_wrapper_ms, "padded_wrapper_ms": padded_ms}
     return out, row, path_launches
 
 
@@ -3098,15 +3362,17 @@ def main() -> int:
 
     # bound_ms sets integer operations against the float32 rate, as every
     # earlier run did; issue_bound_ms sets the integer kernels' counts
-    # against the rate the card issues integer operations at. Neither may
-    # read above a time.
-    issue_rate = int_issue_rate()
-    log(f"integer issue rate: {issue_rate / 1e12:.3f} T/s (64 lanes x SMs x max SM clock)")
+    # against the rate the card issues integer operations at (mica's merge
+    # steps, a mix of pipes, against the dispatch rate: its row brings its
+    # own). No bound may read above a time.
+    int_rate = issue_rate()
+    log(f"integer issue rate: {int_rate / 1e12:.3f} T/s (64 lanes x SMs x max SM clock)")
     report = []
     for r in rows:
-        issue_ms = r["int_ops"] / issue_rate * 1e3 if "int_ops" in r else None
+        issue_ms = r.get("issue_bound_ms",
+                         r["int_ops"] / int_rate * 1e3 if "int_ops" in r else None)
         least = min(r["ms"], r.get("device_ms", r["ms"]))
-        if max(r["bound_ms"], issue_ms or 0.0) > least:
+        if max(r["bound_ms"], issue_ms or 0.0, r.get("latency_bound_ms", 0.0)) > least:
             print(f"chip_smoke: a bound of {r['name']} reads above its time", file=sys.stderr)
             return 1
         report.append({
@@ -3120,8 +3386,9 @@ def main() -> int:
                 "launches_indel_band0": band0.get(r["name"], 0)}
                if r["name"] in ("translate", "myers", "wavefront") else {}),
             **{key: val for key, val in r.items()
-               if ("_ms" in key or key.startswith("ms_") or key == "plain_pairs")
-               and key not in ("plain_ms", "bound_ms", "library_ms")},
+               if ("_ms" in key or key.startswith("ms_") or key.endswith("_ns")
+                   or key.startswith("latency_") or key == "plain_pairs")
+               and key not in ("plain_ms", "bound_ms", "library_ms", "issue_bound_ms")},
         })
     print(json.dumps({"device_functions": device_functions}))
     print(json.dumps({"scale": scale}))

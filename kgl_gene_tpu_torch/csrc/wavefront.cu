@@ -79,6 +79,19 @@ __device__ u64 match_word(const int32_t* __restrict__ ap, int la, int blk,
   return eq;
 }
 
+// The same for kernel `local`, whose pattern starts with `pad` rows that
+// match every symbol: bit r of block blk is padded row 64 blk + r, which is
+// query row 64 blk + r - pad.
+__device__ u64 match_word_padded(const int32_t* __restrict__ ap, int la, int blk,
+                                 int c, int pad) {
+  u64 eq = 0;
+  const int base = blk * 64 - pad;
+  const int end = min(64, la - base);
+  for (int r = 0; r < end; ++r)
+    eq |= (u64)(base + r < 0 || __ldg(ap + base + r) == c) << r;
+  return eq;
+}
+
 // HW = false: kernel B3 as described above. HW = true: the local (infix,
 // edlib HW mode) distance of kernel `local`, described at kgt_local below.
 template <int K, bool HW>  // K: 64-row blocks a lane holds at once
@@ -113,12 +126,28 @@ bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
   for (int i = lane; i < hstride / 4; i += 32) ((uint32_t*)hbytes)[i] = top;
   __syncwarp();
   uint32_t* peq32 = (uint32_t*)peq;
-  for (int q = 0; q * 32 < la; ++q) {
-    const int i = q * 32 + lane;
-    const int c = i < la ? __ldg(ap + i) : -1;
-    const unsigned m = __match_any_sync(FULL, c);
-    if (i < la && (unsigned)c < (unsigned)SIGMA && __ffs(m) - 1 == lane)
-      peq32[((size_t)c * nblk_pad + (q >> 1)) * 2 + (q & 1)] = m;
+  // HW: pad rows ahead of the query put its last row at bit 63.
+  const int pad = HW ? -la & 63 : 0;
+  const u64 pad_rows = (1ull << pad) - 1;
+  if constexpr (HW) {
+    for (int q = 0; q * 32 < la + pad; ++q) {
+      const int i = q * 32 + lane - pad;
+      const bool in = i >= 0 && i < la;
+      const int c = in ? __ldg(ap + i) : -1;
+      const unsigned m = __match_any_sync(FULL, c);
+      if (in && (unsigned)c < (unsigned)SIGMA && __ffs(m) - 1 == lane)
+        peq32[((size_t)c * nblk_pad + (q >> 1)) * 2 + (q & 1)] = m;
+    }
+    __syncwarp();
+    peq[lane * nblk_pad] |= pad_rows;  // SIGMA == 32: a lane a symbol
+  } else {
+    for (int q = 0; q * 32 < la; ++q) {
+      const int i = q * 32 + lane;
+      const int c = i < la ? __ldg(ap + i) : -1;
+      const unsigned m = __match_any_sync(FULL, c);
+      if (i < la && (unsigned)c < (unsigned)SIGMA && __ffs(m) - 1 == lane)
+        peq32[((size_t)c * nblk_pad + (q >> 1)) * 2 + (q & 1)] = m;
+    }
   }
   __syncwarp();
 
@@ -127,28 +156,30 @@ bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
   const u64 la_rows = ~0ull >> (63 - la_pos);  // rows <= la of la_blk
   const int src = (lane + 31) & 31;  // the lane above; lane 31 for lane 0
   constexpr int SPAN = 32 * K;
+  // HW: `off` idle slots ahead of block 0 (they pass on the zero top carry
+  // and the symbols) put the last block in lane 31's last slot of the last
+  // stripe, whose carries the stripe store below keeps: row la's deltas.
+  const int off = HW ? (SPAN - nblk % SPAN) % SPAN : 0;
+  const int vblk = nblk + off;  // slots the stripes cover
   int total = 0;  // sum of my blocks' vertical deltas down column lb
-  // HW: D[la][j] along row la and its running minimum over j = 0..lb,
-  // kept by the slot that holds block la_blk (one lane of the last stripe).
-  int score = la, best = la;
-  for (int r = 0, blk0 = 0; blk0 < nblk; ++r, blk0 += SPAN) {
-    const int nact = min(SPAN, nblk - blk0);
-    const bool keeps = lane == 31 && blk0 + SPAN < nblk;  // a stripe below reads my carries
+  for (int r = 0, blk0 = 0; blk0 < vblk; ++r, blk0 += SPAN) {
+    const int nact = min(SPAN, vblk - blk0);
+    // A stripe below reads my carries; HW: the scan reads the last's.
+    const bool keeps = lane == 31 && (HW || blk0 + SPAN < vblk);
     const uint8_t* hin = hbytes + (r & 1) * hstride;
     uint8_t* hout = hbytes + ((r + 1) & 1) * hstride;
-    // Slot k of lane t is block blk0 + 32 k + t, at step s on column
+    // Slot k of lane t is block blk0 + 32 k + t - off, at step s on column
     // s - t - 32 k.
     int lb_mine[K], blk[K], carry[K], c_mine[K];
     const u64* peq_blk[K];
     u64 vp[K], vn[K];
-    bool own[K];  // HW: the slot holds block la_blk
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      blk[k] = blk0 + 32 * k + lane;
-      own[k] = HW && blk[k] == la_blk;
-      lb_mine[k] = blk[k] < nblk ? lb : 0;  // 0 switches an idle slot off
-      peq_blk[k] = peq + min(blk[k], nblk - 1);
-      vp[k] = ~0ull;
+      blk[k] = blk0 + 32 * k + lane - off;
+      // 0 switches an idle slot off (HW: the idle slots lead, blk < 0)
+      lb_mine[k] = (HW ? blk[k] >= 0 : blk[k] < nblk) ? lb : 0;
+      peq_blk[k] = peq + (HW ? max(blk[k], 0) : min(blk[k], nblk - 1));
+      vp[k] = HW && blk[k] == 0 ? ~pad_rows : ~0ull;  // pad rows: D[i][0] = 0
       vn[k] = 0ull;
       carry[k] = 0;   // bit 0: ph_out, bit 1: mh_out of the slot's last column
       c_mine[k] = 0;  // the symbol of the slot's last column
@@ -188,7 +219,8 @@ bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
 #pragma unroll
         for (int k = 0; k < K; ++k)
           if (live[k] && (unsigned)c_mine[k] >= (unsigned)SIGMA)
-            eq[k] = match_word(ap, la, blk[k], c_mine[k]);
+            eq[k] = HW ? match_word_padded(ap, la, blk[k], c_mine[k], pad)
+                       : match_word(ap, la, blk[k], c_mine[k]);
       }
       // No branch below: the K recurrences are independent and interleave.
 #pragma unroll
@@ -200,11 +232,6 @@ bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
         u64 ph = vn[k] | ~(xh | vp[k]);
         u64 mh = vp[k] & xh;
         const int carry_out = (int)(ph >> 63) | ((int)(mh >> 63) << 1);
-        if (HW) {  // row la's horizontal delta in this column, by selects
-          const int d = (int)((ph >> la_pos) & 1) - (int)((mh >> la_pos) & 1);
-          score += live[k] & own[k] ? d : 0;
-          best = min(best, score);
-        }
         ph = (ph << 1) | ph_in;
         mh = (mh << 1) | mh_in;
         vp[k] = live[k] ? mh | ~(xv | ph) : vp[k];
@@ -216,16 +243,31 @@ bitvector_kernel(const int32_t* __restrict__ a, int64_t a_stride, int Wa,
     // VP/VN now hold column lb: D[i][lb] - D[i-1][lb] for each slot's rows.
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (HW) {
-        if (own[k]) out[p] = best;  // min of row la over columns 0..lb
-      } else if (blk[k] < nblk) {
+      if (!HW && blk[k] < nblk) {
         const u64 rows = blk[k] < la_blk ? ~0ull : la_rows;
         total += __popcll(vp[k] & rows) - __popcll(vn[k] & rows);
       }
     }
     __syncwarp();
   }
-  if (!HW) {
+  if constexpr (HW) {
+    // D[la][j] = la + the deltas of columns 1..j, and the answer is its
+    // minimum over j = 0..lb: a warp scan of 32 columns at a time.
+    const uint8_t* hl = hbytes + (vblk / SPAN & 1) * hstride;  // the last stripe's hout
+    int run = la, best = la;
+    for (int c0 = 0; c0 < lb; c0 += 32) {
+      const int h = c0 + lane < lb ? hl[c0 + lane] : 0;
+      int d = (h & 1) - (h >> 1);
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(FULL, d, off);
+        d += lane >= off ? v : 0;
+      }
+      best = min(best, run + d);  // past lb, d repeats column lb's sum
+      run += __shfl_sync(FULL, d, 31);
+    }
+    for (int off = 16; off > 0; off >>= 1) best = min(best, __shfl_xor_sync(FULL, best, off));
+    if (lane == 0) out[p] = best;
+  } else {
     for (int off = 16; off > 0; off >>= 1) total += __shfl_xor_sync(FULL, total, off);
     if (lane == 0) out[p] = lb + total;  // D[0][lb] plus the deltas down to row la
   }
@@ -279,27 +321,38 @@ KGT_API int kgt_wavefront(const void* a, int64_t a_stride, int64_t Wa,
 // lq = 0 gives 0. It is the reference's symmetric Pf gene-family metric
 // (kgl_sequence_distance_impl.cpp:46-76).
 //
-// The body is B3's (bitvector_kernel<K, true>), with four changes: (1) the
-// kernel picks q and t per pair by swapping the two rows' pointers and
+// The body is B3's (bitvector_kernel<K, true>), with these changes: (1)
+// the kernel picks q and t per pair by swapping the two rows' pointers and
 // lengths, so q's match words fill Peq; (2) stripe 0 reads a zero carry,
-// D[0][j] - D[0][j-1] = 0; (3) the slot that holds q's last block adds
-// bit (lq - 1) & 63 of Ph and subtracts that bit of Mh for each of its
-// live columns 1..lt, in order, and keeps the running minimum of
-// D[lq][j] from D[lq][0] = lq: that lane writes the answer, no warp
-// reduction; (4) lq = 0 returns 0. Pads past lt never enter the minimum:
-// a slot's column is live only while it is < lt. Equality over all int32
-// codes, the shared-memory layout and MAX_KERNEL_LEN are B3's, with the
-// pattern's width min(Wa, Wb) and the text's max(Wa, Wb).
+// D[0][j] - D[0][j-1] = 0; (3) q is preceded by pad = -lq mod 64 rows that
+// match every symbol (their bits set in every match word, also the ones
+// built on the spot) and whose column-0 deltas are 0 (VP and VN clear).
+// Those rows repeat the zero top row, so row pad + i is row i of the HW
+// table, and row lq lands on bit 63 of the last block: its horizontal
+// delta in each column is the carry that block hands down anyway; (4)
+// -nblk mod 32 K idle slots ahead of block 0 (they hand on the zero top
+// carry and the symbols, and cost as many steps) put the last block in
+// lane 31's last slot, whose carries B3 already stores a byte a column
+// for the stripe below: the last stripe stores them too, into the buffer
+// no stripe reads, so the scan adds no instruction to a step; (5) after
+// the scan the warp takes min over j of lq + the prefix sums of those
+// deltas, 32 columns a warp scan; (6) lq = 0 returns 0. The
+// pads past lt never enter the minimum: a slot's column is live only
+// while it is < lt. Equality over all int32 codes, the shared-memory
+// layout and MAX_KERNEL_LEN are B3's, with the pattern's width min(Wa, Wb)
+// and the text's max(Wa, Wb). B3's instantiation (HW = false) is the code
+// it was before.
 //
 // Bound on the card: operations, as B3: 34 int32 operations a block step
-// over sum ceil(lq / 64) * lt block steps, plus the row-lq tracking in
-// every slot (a variable 64-bit shift of Ph and Mh, a select, an add and
-// a min). Issue-bound at many pairs, a dependent chain of
-// (lt + 63) * ceil(lq / 4096) steps a pair at few. Over 32,640 pairs of
-// 3 kb it takes 1.25x B3's time on an NVIDIA H100 80GB HBM3 at 700 W
-// (22.4 ms against 17.9 ms, chip_smoke.py). Tracking one
-// selected slot a step, or a mask-selected bit, in place of every slot
-// ran slower there.
+// over sum ceil(lq / 64) * lt block steps. Issue-bound at many pairs, a
+// dependent chain of (lt + 63) * ceil(lq / 4096) steps a pair at few. The
+// first design tracked row lq in every slot (a variable 64-bit shift of Ph
+// and Mh, a select, an add and a min a slot and step) and took 1.25x B3's
+// time over 32,640 pairs of 3 kb on an NVIDIA H100 80GB HBM3 at 700 W
+// (22.4 ms against 17.9 ms, chip_smoke.py); the owner slot storing its
+// carry by a predicated byte store a step also ran well above B3. This
+// design: 19.0 ms against B3's 17.9 in the same windows, 1.06x (the same
+// card and script).
 KGT_API int kgt_local(const void* a, int64_t a_stride, int64_t Wa,
                       const void* b, int64_t b_stride, int64_t Wb,
                       const void* la, const void* lb, void* out,

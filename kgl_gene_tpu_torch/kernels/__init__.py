@@ -71,12 +71,23 @@ _SIGNATURES = {
     # codes, row_stride, pair_stride, M, W, la, lb, ops, counts, B, band_k,
     # max_steps, stream
     "kgt_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream
-    "kgt_mica": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
+    # ptr_i, ids_i, ic_i, ni, ptr_j, ids_j, ic_j, nj, tile, entries, out,
+    # symmetric, stream: compact rows
+    "kgt_mica": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P),
+    # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream: the
+    # first design on padded lists (scripts/torch_kernel_bodies.py)
+    "kgt_mica_tiles": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
+    # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
+    # by chip_smoke.py for the walk's latency bound
+    "kgt_chase": (_P, _I, _I, _P, _P),
     # coding, row_stride, k, out -> 1 (vector body) or 0 (scalar); no launch
     "kgt_translate_body": (_P, _I, _I, _P),
     # B, Wa, Wt, band_k -> 1 (group body) or 0 (thread); no launch
     "kgt_myers_body": (_I, _I, _I, _I),
+    # tile, entries -> blocks of kgt_mica an SM holds; no launch
+    "kgt_mica_occupancy": (_I, _I),
+    # K -> blocks of kgt_mica_tiles an SM holds; no launch
+    "kgt_mica_tiles_occupancy": (_I,),
     # band_k -> 1 (warp body) or 0 (block); no launch
     "kgt_banded_body": (_I,),
     "kgt_banded_choices_body": (_I,),

@@ -10,16 +10,23 @@ over columns 0..lt; an empty query gives 0.
 
 The CUDA kernel is kgt_local in csrc/wavefront.cu: kernel B3's bit-vector
 body (one warp a pair, the pattern's 64-row blocks skewed over the lanes)
-instantiated with a zero top carry, the query chosen per pair inside the
-kernel, and the running minimum of row lq kept by the lane that holds the
-query's last block. What bounds it is B3's: 34 int32 operations a block
-step over sum ceil(lq / 64) * lt steps.
+instantiated with a zero top carry and the query chosen per pair inside
+the kernel. The query is preceded by -lq mod 64 rows that match every
+symbol and start with vertical delta 0, which repeat the zero top row, so
+row lq is the last block's bit 63 and its deltas along the row are the
+carries that block hands down anyway. Idle slots ahead of block 0 put the
+last block in lane 31's last slot, whose carries B3 stores a byte a
+column for the stripe below; the last stripe stores them too, and the
+warp takes the minimum of their prefix sums after the scan. What bounds
+it is B3's: 34 int32 operations a block step over sum ceil(lq / 64) * lt
+steps.
 
 Two plain PyTorch versions stand beside it: ops/edit_distance.
 batched_levenshtein_local (the cell-level row DP) is what a CPU tensor
 takes and the oracle the kernel is held against at full shapes;
 bitvector_local_plain below is the kernel's own word-level algorithm in
-int64 words. A CUDA tensor launches the kernel or raises.
+int64 words, pad rows and carries included. A CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -59,53 +66,57 @@ def _query_target(seq_a, len_a, seq_b, len_b):
 def bitvector_local_plain(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
     """Plain PyTorch version of the local kernel's algorithm: B3's
     full-width Myers/Hyyro over int64 words (ops/wavefront.bitvector_plain)
-    with a zero carry into the top block, the shorter sequence as the
-    pattern, and the running minimum of D[lq][j] over columns 0..lt
-    starting from D[lq][0] = lq. As in the kernel's systolic skew, block k
-    works on text column s - k at step s, taking the carries block k - 1
-    left one step before, so all blocks advance in one step of tensor
-    operations. seq_a (B, Ma), seq_b (B or 1, Mb), len_a, len_b (B,)
-    (clamped to the widths). Returns (B,) int32."""
+    with a zero carry into the top block and the shorter sequence as the
+    pattern, preceded by pad = -lq mod 64 rows that match every symbol
+    and start with vertical delta 0. Row lq is then bit 63 of the last
+    block, whose carries are D[lq][j] - D[lq][j-1] column by column; after
+    the scan the distance is the minimum over j = 0..lt of lq plus their
+    prefix sums. As in the kernel's systolic skew, block k works on text
+    column s - k at step s, taking the carries block k - 1 left one step
+    before, so all blocks advance in one step of tensor operations. seq_a
+    (B, Ma), seq_b (B or 1, Mb), len_a, len_b (B,) (clamped to the widths).
+    Returns (B,) int32."""
     B = seq_a.shape[0]
     dev = seq_a.device
     q, lq, t, lt = _query_target(seq_a, len_a, seq_b, len_b)
     L = int(lt.max()) if B else 0
     n_blk = max(-(-(int(lq.max()) if B else 0) // WORD), 1)
     rows = n_blk * WORD
-    codes = torch.zeros((B, rows), dtype=torch.int64, device=dev)
-    w = min(q.shape[1], rows)
-    codes[:, :w] = q[:, :w]
-    codes = codes.view(B, n_blk, WORD)
-    in_q = (torch.arange(rows, device=dev)[None, :] < lq[:, None]).view(B, n_blk, WORD)
+    pad = -lq & (WORD - 1)
+    src = torch.arange(rows, device=dev)[None, :] - pad[:, None]  # the query row of each row
+    in_q = ((src >= 0) & (src < lq[:, None])).view(B, n_blk, WORD)
+    is_pad = (src < 0).view(B, n_blk, WORD)
+    codes = q.gather(1, src.clamp(0, q.shape[1] - 1)).view(B, n_blk, WORD)
 
     blk = torch.arange(n_blk, device=dev)
     vp = torch.full((B, n_blk), -1, dtype=torch.int64, device=dev)
+    vp[:, 0] = ~((1 << pad) - 1)  # pad rows: D[i][0] = 0
     vn = torch.zeros((B, n_blk), dtype=torch.int64, device=dev)
     ph_c = torch.zeros((B, n_blk), dtype=torch.int64, device=dev)  # each block's last carries
     mh_c = torch.zeros_like(ph_c)
-    q_blk = ((lq - 1) >> 6).clamp(min=0)[:, None]
-    q_pos = (lq - 1) & 63
+    last = ((lq - 1) >> 6).clamp(min=0)[:, None]  # the block holding row lq at bit 63
     zero = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-    score = lq.clone()
-    best = lq.clone()
+    deltas = []  # the last block's carry, step by step: D[lq][j] - D[lq][j-1]
     for s in range(L + n_blk - 1):
         col = s - blk  # (n_blk,) the column each block works on, 0-based
         live = (col[None, :] >= 0) & (col[None, :] < lt[:, None])  # (B, n_blk)
         sym = t[:, col.clamp(0, max(L - 1, 0))]
-        eq = pack_words((codes == sym[:, :, None]) & in_q)
+        eq = pack_words(((codes == sym[:, :, None]) & in_q) | is_pad)
         # Block k takes what block k - 1 left; the top block reads
         # D[0][j] - D[0][j-1] = 0.
         ph_in = torch.cat([zero, ph_c[:, :-1]], 1)
         mh_in = torch.cat([zero, mh_c[:, :-1]], 1)
-        ph, mh, vp_new, vn_new, ph_out, mh_out = block_step(eq, vp, vn, ph_in, mh_in)
+        _ph, _mh, vp_new, vn_new, ph_out, mh_out = block_step(eq, vp, vn, ph_in, mh_in)
         vp = torch.where(live, vp_new, vp)
         vn = torch.where(live, vn_new, vn)
         ph_c = torch.where(live, ph_out, ph_c)
         mh_c = torch.where(live, mh_out, mh_c)
-        d = (((ph.gather(1, q_blk)[:, 0] >> q_pos) & 1)
-             - ((mh.gather(1, q_blk)[:, 0] >> q_pos) & 1))
-        score = score + torch.where(live.gather(1, q_blk)[:, 0], d, 0)
-        best = torch.minimum(best, score)
+        deltas.append(torch.where(live.gather(1, last)[:, 0],
+                                  (ph_out - mh_out).gather(1, last)[:, 0], 0))
+    if deltas:
+        best = torch.minimum(lq, (lq[:, None] + torch.stack(deltas, 1).cumsum(1)).amin(1))
+    else:
+        best = lq
     return torch.where(lq == 0, 0, best).to(torch.int32)
 
 

@@ -1,6 +1,7 @@
-"""The two bodies of kernels B1, B4 and B5 side by side, and the walk kernel.
+"""The two bodies of kernels B1, B4 and B5 side by side, the walk kernel, and
+the first design of the MICA kernel beside the one the port runs.
 
-    python3 scripts/torch_kernel_bodies.py [--quick] [--sass]
+    python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order]
 
 Builds the kernels and prints the compiler's register and spill report.
 Then, on the card:
@@ -8,7 +9,11 @@ Then, on the card:
   1. holds each body of B1 (group: a pair over NB lanes of a warp; thread:
      a pair a thread), of B4 and of B5 (warp: a pair a warp; block: a pair
      a block), and the walk kernel, against the plain PyTorch versions at
-     S = 3,000 (exact);
+     S = 3,000 (exact), and both designs of the MICA kernel (csrc/mica.cu:
+     kgt_mica on compact rows, and kgt_mica_tiles, the first design on
+     padded lists, reachable only from here: mica_tiles, and
+     mica_first_design with its sort; chip_smoke.py's phase 3f times them
+     from here) against mica_plain;
   2. times both bodies of B1 over a grid of pair counts for every band,
      with one shared text and with per-pair texts, on the device alone (a
      CUDA graph replay), and prints which body the launcher's rule takes
@@ -19,9 +24,13 @@ Then, on the card:
   4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
      bases at bands 31 to 255.
 
---quick stops after step 1. --sass writes the machine code of the new bodies, of the
-16 x 16 MICA kernel (csrc/mica.cu, whose instructions a merge step chip_smoke.py's
-MICA_MERGE_OPS counts) and of B3 and the local kernel at two slots a lane
+--quick stops after step 1. --mica-order then times the MICA kernel on
+chip_smoke.py phase 3f's 8,192 rows as the port orders them (each tile's
+rows by length inside the block) and with all rows put in one order by
+length first, the alternative the design did not take, with each order's
+lane slots, shared memory and blocks an SM. --sass writes the machine code of the new bodies, of both
+MICA kernels (csrc/mica.cu; chip_smoke.py's MICA_MERGE_OPS counts the merge loop of
+mica_rows_kernel) and of B3 and the local kernel at one and two slots a lane
 (csrc/wavefront.cu), as cuobjdump prints it, to a sass_<kernel>.txt file each first.
 Needs a CUDA device.
 """
@@ -38,7 +47,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import S, banded_case, exact, nvidia_smi_line, time_device  # noqa: E402
 from kgl_gene_tpu_torch import kernels  # noqa: E402
 from kgl_gene_tpu_torch.ops.banded import (  # noqa: E402
     banded_choices, banded_choices_kernel_body, banded_choices_plain, banded_distance,
@@ -47,12 +55,34 @@ from kgl_gene_tpu_torch.ops.banded import (  # noqa: E402
 from kgl_gene_tpu_torch.ops.myers import (  # noqa: E402
     MYERS_BANDS, myers_distance_padded, myers_kernel_body, myers_layout, myers_plain,
 )
+from kgl_gene_tpu_torch.ops.similarity import (  # noqa: E402
+    ancestor_lists, id_order, mica, mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
+)
 from kgl_gene_tpu_torch.ops.traceback import tb_walk, tb_walk_plain  # noqa: E402
+
+
+def mica_tiles(ids, ic):
+    """The first design of the MICA kernel (kgt_mica_tiles: a block per 16
+    x 16 tile of pairs on padded (rows, K) lists) on one row set whose rows
+    id_order has sorted: (rows, rows) float32 in one launch, counted as
+    "mica_tiles"."""
+    n, K = ids.shape
+    out = torch.empty(n, n, dtype=torch.float32, device=ids.device)
+    kernels.launch("mica_tiles", "kgt_mica_tiles", ids.device, ids.data_ptr(), ic.data_ptr(), n,
+                   K, ids.data_ptr(), ic.data_ptr(), n, K, out.data_ptr(), 1)
+    return out
+
+
+def mica_first_design(ids, ic):
+    """The first design's wrapper: id_order on the card, then mica_tiles."""
+    return mica_tiles(*id_order(ids, ic))
 
 
 def mutants(rng, B, edits):
     """(a, la, ref, lb): B mutants of one 3,000-base reference with up to
     `edits` substitutions each, full lengths."""
+    from chip_smoke import S
+
     ref = rng.integers(0, 4, size=S).astype(np.int32)
     a = np.tile(ref, (B, 1))
     for i in range(B):
@@ -64,6 +94,8 @@ def mutants(rng, B, edits):
 
 
 def check(dev):
+    from chip_smoke import S, banded_case, exact
+
     rng = np.random.default_rng(7)
     a, la, b, lb = (torch.as_tensor(x, device=dev) for x in banded_case(rng, 64))
     ref = b[:1].contiguous()
@@ -93,10 +125,23 @@ def check(dev):
     want = tb_walk_plain(codes, la, lb, band_k=127, max_steps=300)
     exact("walk ops (B=64, k=127, 300 steps)", got[0], want[0])
     exact("walk counts", got[1], want[1])
+    lists = np.full((300, 192), -1, np.int32)
+    for r in range(300):
+        L = int(rng.integers(0, 193))
+        lists[r, :L] = np.sort(rng.choice(600, L, replace=False))
+    ids = torch.as_tensor(lists, device=dev)
+    ic = torch.as_tensor((rng.random(lists.shape) * 8).astype(np.float32), device=dev)
+    want = mica_plain(ids, ic, ids, ic)
+    for name, got in (("kgt_mica", mica(ids, ic)), ("kgt_mica_tiles", mica_first_design(ids, ic))):
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from mica_plain (n=300, K=192)")
+        print(f"{name} (n=300, K=192): equal to mica_plain")
     torch.cuda.synchronize()
 
 
 def time_myers(dev):
+    from chip_smoke import S, time_device
+
     rng = np.random.default_rng(8)
     grid = (64, 256, 1024, 4096, 8192, 16384, 32768)
     a, la, ref, lb = mutants(rng, max(grid), 48)
@@ -116,6 +161,8 @@ def time_myers(dev):
 
 
 def time_choices_and_walk(dev):
+    from chip_smoke import S, time_device
+
     rng = np.random.default_rng(9)
     a, la, ref, lb = mutants(rng, 256, 48)
     a_t, la_t, lb_t = (torch.as_tensor(x, device=dev) for x in (a, la, lb))
@@ -134,6 +181,8 @@ def time_choices_and_walk(dev):
 
 
 def time_banded(dev):
+    from chip_smoke import S, time_device
+
     rng = np.random.default_rng(10)
     grid = (256, 4096, 32640)
     a, la, _ref, lb = mutants(rng, max(grid), 48)
@@ -149,6 +198,54 @@ def time_banded(dev):
                   f"{ms['block']:.6f} | rule takes {banded_kernel_body(k)}", flush=True)
 
 
+def time_mica_order(dev):
+    """The MICA kernel on phase 3f's rows in the port's order and in one
+    global order by length (whose output comes in that order: no scatter
+    back is counted), timed in turns, beside each order's lane slots
+    (chip_smoke.mica_work), shared memory and blocks an SM."""
+    import tempfile
+
+    from chip_smoke import (
+        GO_MAX_TERMS, mica_work, time_cuda_turns, time_device, write_go_gaf, write_go_obo,
+    )
+    from kgl_gene_tpu_torch.ontology.annotation import TermAnnotation
+    from kgl_gene_tpu_torch.ontology.graph import GoGraph
+    from kgl_gene_tpu_torch.ontology.information import InformationContent
+    from kgl_gene_tpu_torch.ontology.obo import parse_go_file
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obo, gaf = os.path.join(tmp, "go.obo"), os.path.join(tmp, "pf3d7.gaf")
+        write_go_gaf(gaf, write_go_obo(obo))
+        graph = GoGraph(parse_go_file(obo))
+        annotation = TermAnnotation.from_gaf_file(gaf, graph=graph)
+    info = InformationContent(graph, annotation)
+    bp = annotation.all_terms("biological_process")[:GO_MAX_TERMS]
+    ids, vals = ancestor_lists(info, np.array([graph.term_index(t) for t in bp]))
+    lens = (ids >= 0).sum(1)
+    lib = kernels.library()
+    orders = {"port": np.arange(len(ids)), "by length": np.argsort(lens, kind="stable")}
+    sets = {}
+    for name, perm in orders.items():
+        off = np.r_[0, np.cumsum(lens[perm])]
+        keep = ids[perm] >= 0
+        sets[name] = (row_set(off, ids[perm][keep], vals[perm][keep], dev), mica_tile(off, off, True))
+    want = mica_rows(sets["port"][0])
+    perm = torch.as_tensor(orders["by length"], device=dev)
+    if not torch.equal(mica_rows(sets["by length"][0]), want[perm][:, perm]):
+        raise AssertionError("the rows in one order by length give another matrix")
+    calls = [lambda rows=rows: mica_rows(rows) for rows, _tile in sets.values()]
+    host = time_cuda_turns(calls, 5, windows=3)
+    least = mica_work(ids, dev)[0]
+    print(f"MICA kernel, n = {len(ids)}, K = {ids.shape[1]} (chip_smoke.py phase 3f's rows):")
+    for (name, perm), ms, call, (_rows, (tile, entries)) in zip(
+            orders.items(), host, calls, sets.values()):
+        slots = mica_work(ids[perm], dev)[1]
+        print(f"  {name}: {ms:.4f} ms host-inclusive, device {time_device([call], 5, windows=3):.4f}"
+              f" ms; lane slots {slots / least:.3f} x the steps; tile {tile}, "
+              f"{mica_smem_bytes(tile, entries)} B of shared memory, "
+              f"{lib.kgt_mica_occupancy(tile, entries)} blocks an SM", flush=True)
+
+
 def dump_sass():
     """The SASS of each new kernel body, one file a kernel."""
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -160,6 +257,7 @@ def dump_sass():
         name = chunk.split("\n", 1)[0]
         for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
                     "banded_warp_kernelILi8ELb0E", "walk_kernel", "mica_kernelILi16E",
+                    "mica_rows_kernel", "bitvector_kernelILi1ELb0E", "bitvector_kernelILi1ELb1E",
                     "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E"):
             if key in name:
                 with open(os.path.join(out_dir, f"sass_{key}.txt"), "w") as f:
@@ -171,6 +269,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    from chip_smoke import nvidia_smi_line
+
     print(f"card: {nvidia_smi_line()}")
     kernels.library()
     for line in kernels.build_log.splitlines():
@@ -180,6 +280,8 @@ def main() -> int:
         dump_sass()
     dev = torch.device("cuda")
     check(dev)
+    if "--mica-order" in sys.argv:
+        time_mica_order(dev)
     if "--quick" not in sys.argv:
         time_myers(dev)
         time_choices_and_walk(dev)

@@ -46,10 +46,13 @@ def scalar_local(a, b):
 
 def local_kernel_mirror(a, la0, b, lb0, lanes=32, K=None):
     """Lane-level mirror of bitvector_kernel<K, true> for one pair: the
-    per-pair swap, B3's systolic skew of 64-row blocks over `lanes` lanes
-    and K slots, the shuffles from the lane above, stripes whose carries
-    pass through two byte buffers, the zero top carry, and the running
-    minimum of row lq kept by the slot that owns block (lq - 1) >> 6.
+    per-pair swap, the pad rows ahead of the query (matching every symbol,
+    vertical delta 0), B3's systolic skew of 64-row blocks over `lanes`
+    lanes and K slots with `off` idle slots ahead of block 0 (so that the
+    last block is the last slot of lane lanes - 1), the shuffles from the
+    lane above, stripes whose carries pass through two byte buffers (the
+    last stripe's too: row lq's deltas), the zero top carry, and the scan
+    of those deltas `lanes` columns at a time.
     lanes=32 with K from the pattern's width is the kernel; fewer lanes
     reach the stripe and slot edges at small lengths."""
     Wa, Wb = len(a), len(b)
@@ -61,29 +64,33 @@ def local_kernel_mirror(a, la0, b, lb0, lanes=32, K=None):
         return 0
     if K is None:
         K = 1 if min(Wa, Wb) <= 64 * lanes else 2
-    nblk = (la + 63) >> 6
+    pad = -la & 63
+    nblk = (la + pad) >> 6
+    assert nblk == (la + 63) >> 6
 
-    words = {}  # Peq: (code, block) -> match word, rows >= la match nothing
+    words = {}  # Peq: (code, block) -> match word over the padded rows
 
     def match(c, blk):
         if (c, blk) not in words:
-            base = blk * 64
+            base = blk * 64 - pad
             words[c, blk] = sum(1 << r for r in range(min(64, la - base))
-                                if int(ap[base + r]) == c)
+                                if base + r < 0 or int(ap[base + r]) == c)
         return words[c, blk]
 
     hstride = -(-(max(Wa, Wb) + lanes * K) // 16) * 16
     hbytes = [[0] * hstride, [0] * hstride]  # top carry 0 in both buffers
-    la_blk, la_pos = (la - 1) >> 6, (la - 1) & 63
     span = lanes * K
-    score, best = [la] * lanes, [la] * lanes
-    out = None
-    for r, blk0 in enumerate(range(0, nblk, span)):
-        nact = min(span, nblk - blk0)
+    off = (span - nblk % span) % span
+    vblk = nblk + off
+    hout = None
+    for r, blk0 in enumerate(range(0, vblk, span)):
+        nact = min(span, vblk - blk0)
         hin, hout = hbytes[r & 1], hbytes[(r + 1) & 1]
-        blk = [[blk0 + lanes * k + ln for k in range(K)] for ln in range(lanes)]
-        lb_mine = [[lb if blk[ln][k] < nblk else 0 for k in range(K)] for ln in range(lanes)]
-        vp = [[MASK] * K for _ in range(lanes)]
+        blk = [[blk0 + lanes * k + ln - off for k in range(K)] for ln in range(lanes)]
+        lb_mine = [[lb if 0 <= blk[ln][k] < nblk else 0 for k in range(K)]
+                   for ln in range(lanes)]
+        vp = [[MASK & ~((1 << pad) - 1) if blk[ln][k] == 0 else MASK for k in range(K)]
+              for ln in range(lanes)]
         vn = [[0] * K for _ in range(lanes)]
         carry = [[0] * K for _ in range(lanes)]
         c_mine = [[0] * K for _ in range(lanes)]
@@ -98,7 +105,7 @@ def local_kernel_mirror(a, la0, b, lb0, lanes=32, K=None):
                     h = h_up[ln][k] if ln else (h_up[0][k - 1] if k else h0)
                     c_mine[ln][k] = c
                     live = 0 <= s - ln - lanes * k < lb_mine[ln][k]
-                    eq = match(c, min(blk[ln][k], nblk - 1))
+                    eq = match(c, min(max(blk[ln][k], 0), nblk - 1))
                     ph_in, mh_in = h & 1, h >> 1
                     xv = eq | vn[ln][k]
                     eq2 = eq | mh_in
@@ -106,24 +113,24 @@ def local_kernel_mirror(a, la0, b, lb0, lanes=32, K=None):
                     ph = (vn[ln][k] | ~(xh | vp[ln][k])) & MASK
                     mh = vp[ln][k] & xh
                     carry_out = (ph >> 63) | ((mh >> 63) << 1)
-                    d = ((ph >> la_pos) & 1) - ((mh >> la_pos) & 1)
-                    score[ln] += d if live and blk[ln][k] == la_blk else 0
-                    best[ln] = min(best[ln], score[ln])
                     ph = ((ph << 1) | ph_in) & MASK
                     mh = ((mh << 1) | mh_in) & MASK
                     if live:
                         vp[ln][k] = (mh | ~(xv | ph)) & MASK
                         vn[ln][k] = ph & xv
                         carry[ln][k] = carry_out
-            keeps = blk0 + span < nblk
             col = s - (lanes - 1) - lanes * (K - 1)
-            if keeps and 0 <= col < lb_mine[lanes - 1][K - 1]:
+            if 0 <= col < lb_mine[lanes - 1][K - 1]:  # every stripe keeps its carries
                 hout[col] = carry[lanes - 1][K - 1]
-        for ln in range(lanes):
-            for k in range(K):
-                if blk[ln][k] == la_blk:
-                    out = best[ln]
-    return out
+    assert blk[lanes - 1][K - 1] == nblk - 1  # the last block is the last slot
+    run = best = la  # D[la][0]
+    for c0 in range(0, lb, lanes):  # a warp scan of `lanes` columns
+        d = [(h & 1) - (h >> 1) for h in
+             (hout[c0 + ln] if c0 + ln < lb else 0 for ln in range(lanes))]
+        prefix = np.cumsum(d)
+        best = min(best, run + int(prefix.min()))
+        run += int(prefix[-1])
+    return best
 
 
 def _pairs(seed, B, Ma, Mb, alphabet, *, lo=0):
@@ -243,6 +250,50 @@ def test_mirror_stripe_and_slot_edges(lanes, K, lq):
         a, b = (t, q) if flip else (q, t)
         want = scalar_local(a, b)
         assert local_kernel_mirror(a, len(a), b, len(b), lanes=lanes, K=K) == want
+
+
+def _query_cases(seed, lq, shape, B=6):
+    """B pairs whose query has lq rows: a shorter than b ("shorter"),
+    equal lengths ("equal", a stays the query) or a longer, so the query
+    is b ("swap"); codes in -3..39 (outside 0..31 on both sides) with a
+    near copy of the query in the target of every other pair. Rows are at
+    least 5 wide (lq = 0: the lengths are 0, the rows not empty)."""
+    rng = np.random.default_rng(seed)
+    lt = lq + 45 if shape != "equal" else lq
+    q = rng.integers(-3, 40, (B, max(lq, 5))).astype(np.int32)
+    t = rng.integers(-3, 40, (B, max(lt, 5))).astype(np.int32)
+    for i in range(0, B, 2):
+        at = int(rng.integers(0, lt - lq + 1))
+        t[i, at:at + lq] = q[i, :lq]
+        t[i, at + lq // 2:at + lq // 2 + 1] = 41  # one substitution
+    q[0, :min(lq, 2)] = [-2**31, 2**31 - 1][:min(lq, 2)]
+    lens_q, lens_t = np.full(B, lq, np.int32), np.full(B, lt, np.int32)
+    if shape == "swap":
+        return t, lens_t, q, lens_q
+    return q, lens_q, t, lens_t
+
+
+@pytest.mark.parametrize("shape", ["shorter", "equal", "swap"])
+@pytest.mark.parametrize("lq", [0, 1, 63, 64, 65, 128])
+def test_pad_rows_plain_equals_jax(lq, shape):
+    """bitvector_local_plain (pad rows ahead of the query, row lq's deltas
+    read as the last block's carries, the minimum after the scan) against
+    JAX's batched_levenshtein_local and the scalar DP, exactly, at the
+    64-row block edges, lq == lt, the swap, lq = 0 and odd codes."""
+    sa, la, sb, lb = _query_cases(lq * 10 + len(shape), lq, shape)
+    want = _want(sa, la, sb, lb)
+    np.testing.assert_array_equal(np.asarray(j_local(sa, la, sb, lb)), want)
+    np.testing.assert_array_equal(bitvector_local_plain(*_t(sa, la, sb, lb)).numpy(), want)
+
+
+@pytest.mark.parametrize("lq", [1, 63, 65, 128])
+def test_mirror_pad_rows_and_odd_codes(lq):
+    """The lane mirror at the kernel's 32 lanes on the same cases: pad
+    rows in match words built on the spot for codes outside 0..31."""
+    for shape in ("shorter", "swap"):
+        sa, la, sb, lb = _query_cases(lq + len(shape), lq, shape, B=2)
+        got = [local_kernel_mirror(sa[i], int(la[i]), sb[i], int(lb[i])) for i in range(2)]
+        np.testing.assert_array_equal(got, _want(sa, la, sb, lb))
 
 
 def test_cpu_tensor_takes_the_cell_level_version():

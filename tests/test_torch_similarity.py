@@ -110,61 +110,112 @@ def test_mica_wrapper_on_the_cpu_is_the_plain_version():
 
 
 # ------------------------------------------------- the kernel's lane mirror
-def mica_kernel_mirror(ids_i, ic_i, ids_j=None, ic_j=None, T=16):
-    """ops/similarity.mica and csrc/mica.cu block by block: each row set
-    sorted by id_order, the grid of T x T tiles (the upper triangle with
-    mirrored writes for one row set), each row's count of ids >= 0, its
-    real prefix staged in shared memory, a thread's merge of its two rows."""
+def mica_kernel_mirror(ids_i, ic_i, ids_j=None, ic_j=None, T=None, counts=None):
+    """ops/similarity.mica and csrc/mica.cu (mica_rows_kernel) block by
+    block: the padded rows made compact by rows_on_card (id_order, counts,
+    offsets), the tile and shared entries of mica_tile (or tile T), the
+    grid of T x T tiles (the upper triangle with mirrored stores for one
+    row set), each block's staging with two sentinels a row, its local
+    order by (length, row), the warps' rounds of 8 x 4 pairs, a lane's
+    merge two steps a trip (every read inside its row and sentinels), and
+    the output tile. `counts`, a dict, gains the trips of each round's
+    longest lane summed over the warps ("trips")."""
     symmetric = ids_j is None
 
-    def ordered(ids, ic):
-        return [x.numpy() for x in tsim.id_order(torch.as_tensor(ids), torch.as_tensor(ic))]
+    def compact(ids, ic):
+        rows = tsim.rows_on_card(torch.as_tensor(ids), torch.as_tensor(ic))
+        return rows.offsets, rows.ids.numpy(), rows.ic.numpy()
 
-    ids_i, ic_i = ordered(ids_i, ic_i)
-    ids_j, ic_j = (ids_i, ic_i) if symmetric else ordered(ids_j, ic_j)
-    ni, ki = ids_i.shape
-    nj, kj = ids_j.shape
+    off_i, fid_i, fic_i = compact(ids_i, ic_i)
+    off_j, fid_j, fic_j = (off_i, fid_i, fic_i) if symmetric else compact(ids_j, ic_j)
+    ni, nj = len(off_i) - 1, len(off_j) - 1
+    tile, entries = tsim.mica_tile(off_i, off_j, symmetric)
+    if T is not None:
+        tile = T
+        entries = (2 * tsim._tile_entries(off_i, T) if symmetric
+                   else tsim._tile_entries(off_i, T) + tsim._tile_entries(off_j, T))
+    T = tile
     out = np.full((ni, nj), np.nan, np.float32)
-
-    def stage(ids, ic, n, K, r0):
-        s_len = np.zeros(T, np.int64)
-        for e in range(T * K):
-            r, p = divmod(e, K)
-            if r0 + r < n and ids[r0 + r, p] >= 0:
-                s_len[r] += 1
-        s_row = np.full((T, K | 1, 2), np.nan)
-        for e in range(T * K):
-            r, p = divmod(e, K)
-            if r0 + r < n and p < s_len[r]:
-                s_row[r, p] = (ids[r0 + r, p], ic[r0 + r, p])
-        return s_len, s_row
-
-    for bi in range((ni + T - 1) // T):
-        for bj in range((nj + T - 1) // T):
+    SI, SJ = min(8, T), min(4, T)
+    nsj = T // SJ
+    nsb = (T // SI) * nsj
+    per = -(-nsb // 8)
+    trips = 0
+    for bi in range(-(-ni // T)):
+        for bj in range(-(-nj // T)):
             if symmetric and bi > bj:
                 continue
             i0, j0 = bi * T, bj * T
-            la, a_rows = stage(ids_i, ic_i, ni, ki, i0)
-            lb, b_rows = stage(ids_j, ic_j, nj, kj, j0)
-            s_out = np.zeros((T, T + 1), np.float32)
-            for t in range(T * T):
-                ty, tx = divmod(t, T)
-                best = np.float32(0.0)
-                p = q = 0
-                while p < la[ty] and q < lb[tx]:
-                    (x, cx), (y, cy) = a_rows[ty, p], b_rows[tx, q]
-                    if x == y:
-                        best = max(best, np.float32(min(cx, cy)))
-                    p += x <= y
-                    q += y <= x
-                if i0 + ty < ni and j0 + tx < nj:
-                    out[i0 + ty, j0 + tx] = best
-                s_out[ty, tx] = best
-            if symmetric and bi != bj:
-                for t in range(T * T):
-                    ty, tx = divmod(t, T)
-                    if j0 + ty < nj and i0 + tx < ni:
-                        out[j0 + ty, i0 + tx] = s_out[tx, ty]
+            span_i = off_i[min(i0 + T, ni)] - off_i[i0]
+            span_j = off_j[min(j0 + T, nj)] - off_j[j0]
+            assert span_i + span_j <= entries
+            s_ent = [None] * (entries + 4 * T + 2)
+            s_ent[0] = s_ent[1] = (-1, np.float32(0.0))
+            start, length, region = [0] * (2 * T), [0] * (2 * T), {}
+            for r in range(2 * T):
+                side_j = r >= T
+                k = r - T if side_j else r
+                first, off, n = (j0, off_j, nj) if side_j else (i0, off_i, ni)
+                if first + k < n:
+                    start[r] = 2 + (span_i + 2 * T if side_j else 0) + off[first + k] \
+                        - off[first] + 2 * k
+                    length[r] = off[first + k + 1] - off[first + k]
+            for r in range(2 * T):
+                if start[r] == 0:
+                    continue
+                side_j = r >= T
+                src = (off_j[j0 + r - T] if side_j else off_i[i0 + r])
+                fid, fic = (fid_j, fic_j) if side_j else (fid_i, fic_i)
+                for e in range(length[r] + 2):
+                    s_ent[start[r] + e] = ((int(fid[src + e]), fic[src + e]) if e < length[r]
+                                           else (-1, np.float32(0.0)))
+                region[start[r]] = start[r] + length[r] + 2
+            region[0] = 2
+            order = [0] * (2 * T)
+            for r in range(2 * T):
+                side = T if r >= T else 0
+                k = r - side
+                rank = sum(length[side + q] < length[r] or (length[side + q] == length[r] and q < k)
+                           for q in range(T))
+                order[side + rank] = k
+            s_out = np.full((T, T + 1), np.nan, np.float32)
+            for warp in range(8):
+                for sb in range(warp * per, min(nsb, (warp + 1) * per)):
+                    longest = 0
+                    for lane in range(32):
+                        li, lj = lane % 8, lane // 8
+                        if not (li < SI and lj < SJ):
+                            continue
+                        ri = order[(sb // nsj) * SI + li]
+                        rj = order[T + (sb % nsj) * SJ + lj]
+                        pa, pb = start[ri], start[T + rj]
+                        end_a, end_b = region[pa], region[pb]
+                        (x, cx), (y, cy) = s_ent[pa], s_ent[pb]
+                        best, n_trips = np.float32(0.0), 0
+                        while (x | y) >= 0:
+                            n_trips += 1
+                            for _u in range(2):
+                                if x == y:
+                                    best = max(best, np.float32(min(cx, cy)))
+                                adv_a, adv_b = x <= y, y <= x
+                                pa += adv_a
+                                pb += adv_b
+                                assert pa < end_a and pb < end_b
+                                if adv_a:
+                                    x, cx = s_ent[pa]
+                                if adv_b:
+                                    y, cy = s_ent[pb]
+                        longest = max(longest, n_trips)
+                        s_out[ri, rj] = best
+                    trips += longest
+            for e in range(T * T):
+                r, c = divmod(e, T)
+                if i0 + r < ni and j0 + c < nj:
+                    out[i0 + r, j0 + c] = s_out[r, c]
+                if symmetric and bi != bj and j0 + r < nj and i0 + c < ni:
+                    out[j0 + r, i0 + c] = s_out[c, r]
+    if counts is not None:
+        counts["trips"] = trips
     return out
 
 
@@ -208,15 +259,17 @@ def test_kernel_mirror_two_row_sets():
 
 
 def test_mica_work_counts_the_merge_steps():
-    """chip_smoke.mica_work's merge steps and lane slots against the merge
-    loop run pair by pair on the rows in the kernel's order, and the lane
-    slots of the 16 x 16 tiles' warps (two rows of i each) summed."""
+    """chip_smoke.mica_work's merge steps against the merge loop run pair by
+    pair on the rows in the kernel's order, and its lane slots against the
+    kernel mirror's trips: each round's longest lane, two steps a trip, 32
+    lanes, over the upper triangle of tiles (a tile of 16 rows here)."""
     import chip_smoke
 
     rng = np.random.default_rng(4)
     ids, ic = random_lists(rng, 37, 12, universe=20, ic_order=True)
+    ids[5] = -1  # an empty row
     srt = tsim.id_order(torch.as_tensor(ids), torch.as_tensor(ic))[0].numpy()
-    n, T = len(ids), 16
+    n = len(ids)
     steps = np.zeros((n, n), np.int64)
     for i in range(n):
         for j in range(n):
@@ -227,13 +280,97 @@ def test_mica_work_counts_the_merge_steps():
                 p += x <= y
                 q += y <= x
                 steps[i, j] += 1
-    nt = -(-n // T)
-    pad = np.zeros((nt * T, nt * T), np.int64)
-    pad[:n, :n] = steps
-    slots = sum(32 * int(pad[bi * T + 2 * w: bi * T + 2 * w + 2, bj * T: (bj + 1) * T].max())
-                for bi in range(nt) for bj in range(bi, nt) for w in range(T * T // 32))
-    assert chip_smoke.mica_work(ids, "cpu", tile=T, rows=16) == (
-        float(np.triu(steps).sum()), float(slots))
+    counts = {}
+    np.testing.assert_array_equal(mica_kernel_mirror(ids, ic, T=16, counts=counts),
+                                  plain(ids, ic, ids, ic))
+    assert chip_smoke.mica_work(ids, "cpu", tile=16, rows=16) == (
+        float(np.triu(steps).sum()), float(2 * 32 * counts["trips"]))
+
+
+def test_kernel_mirror_tile_walk_at_64():
+    """The kernel's own tile (64 rows): n not a multiple of it, empty rows,
+    lengths that vary widely (the local order), equal to mica_plain and to
+    the JAX package's chunked tile (K a multiple of 64, where the
+    reference scans every column), and mica_work's slots to its trips."""
+    import chip_smoke
+
+    rng = np.random.default_rng(64)
+    ids, ic = random_lists(rng, 70, 128, universe=400)
+    ids[[3, 40, 66]] = -1
+    ic[[3, 40, 66]] = 0.0
+    ids[7, 2:], ic[7, 2:] = -1, 0.0  # a short row beside long ones
+    assert tsim.mica_tile(np.r_[0, np.cumsum((ids >= 0).sum(1))], None, True)[0] == 64
+    counts = {}
+    got = mica_kernel_mirror(ids, ic, counts=counts)
+    np.testing.assert_array_equal(got, plain(ids, ic, ids, ic))
+    np.testing.assert_array_equal(got, jax_tile(jsim._mica_tile_chunked, ids, ic, ids, ic,
+                                                chunk=64))
+    assert chip_smoke.mica_work(ids, "cpu", tile=64, rows=64)[1] == float(2 * 32 * counts["trips"])
+
+
+def test_kernel_mirror_two_row_sets_against_jax():
+    """i != j at the kernel's tile: 37 rows of K = 64 against 70 rows of K
+    = 128, each set with empty rows."""
+    rng = np.random.default_rng(37)
+    ids_i, ic_i = random_lists(rng, 37, 64, universe=300)
+    ids_j, ic_j = random_lists(rng, 70, 128, universe=300, ic_order=True)
+    ids_i[0], ic_i[0] = -1, 0.0
+    ids_j[69], ic_j[69] = -1, 0.0
+    got = mica_kernel_mirror(ids_i, ic_i, ids_j, ic_j)
+    np.testing.assert_array_equal(got, plain(ids_i, ic_i, ids_j, ic_j))
+    # the JAX tile takes one width: the i rows padded to 128 columns
+    wide_i = np.pad(ids_i, ((0, 0), (0, 64)), constant_values=-1)
+    wide_ic = np.pad(ic_i, ((0, 0), (0, 64)))
+    np.testing.assert_array_equal(got, jax_tile(jsim._mica_tile_chunked, wide_i, wide_ic, ids_j,
+                                                ic_j, chunk=64))
+
+
+def test_wide_rows_take_a_smaller_tile():
+    """Rows of about 1,000 ancestors do not fit two 64-row tiles in a
+    block's shared memory: mica_tile takes the widest tile that fits, and
+    the mirror at that tile equals mica_plain."""
+    rng = np.random.default_rng(1000)
+    n, K = 20, 800
+    ids = np.sort(np.stack([rng.choice(1200, K, replace=False) for _ in range(n)]), 1)
+    ids = ids.astype(np.int32)
+    ic = (rng.random((n, K)) * 8).astype(np.float32)
+    ids[2, 700:], ic[2, 700:] = -1, 0.0
+    off = np.r_[0, np.cumsum((ids >= 0).sum(1))]
+    tile, entries = tsim.mica_tile(off, off, True)
+    assert tile < 64 and tsim.mica_smem_bytes(tile, entries) <= tsim.SMEM_LIMIT
+    assert tsim.mica_smem_bytes(2 * tile, 2 * tsim._tile_entries(off, 2 * tile)) \
+        > tsim.SMEM_LIMIT
+    np.testing.assert_array_equal(mica_kernel_mirror(ids, ic), plain(ids, ic, ids, ic))
+
+
+def test_a_row_beyond_shared_memory_raises():
+    off = np.array([0, 40_000, 40_010], np.int64)
+    with pytest.raises(ValueError, match="too long"):
+        tsim.mica_tile(off, off, True)
+
+
+def test_rows_on_card_and_row_sets_on_the_cpu():
+    """rows_on_card's compact rows (on CPU tensors here) hold each padded
+    row's ids >= 0 in ascending order with their ICs; mica_rows on CPU
+    rows is mica_plain of the rows padded, with one row set and two."""
+    rng = np.random.default_rng(12)
+    ids, ic = random_lists(rng, 25, 40, ic_order=True, fill=0.8)
+    ids[4], ic[4] = -1, 0.0
+    rows = tsim.rows_on_card(torch.as_tensor(ids), torch.as_tensor(ic))
+    assert rows.ptr.dtype == torch.int32 and len(rows) == 25
+    for r in range(25):
+        got = rows.ids[rows.offsets[r]:rows.offsets[r + 1]].numpy()
+        keep = ids[r] >= 0
+        order = np.argsort(ids[r][keep])
+        np.testing.assert_array_equal(got, ids[r][keep][order])
+        np.testing.assert_array_equal(rows.ic[rows.offsets[r]:rows.offsets[r + 1]].numpy(),
+                                      ic[r][keep][order])
+    cpu = tsim.row_set(rows.offsets, rows.ids.numpy(), rows.ic.numpy(), "cpu")
+    np.testing.assert_array_equal(tsim.mica_rows(cpu).numpy(), plain(ids, ic, ids, ic))
+    ids_j, ic_j = random_lists(rng, 9, 17)
+    rows_j = tsim.rows_on_card(torch.as_tensor(ids_j), torch.as_tensor(ic_j))
+    np.testing.assert_array_equal(tsim.mica_rows(cpu, rows_j).numpy(),
+                                  plain(ids, ic, ids_j, ic_j))
 
 
 # ------------------------------------------- the device path on DAGs vs JAX
@@ -329,6 +466,42 @@ def test_device_path_equals_jax(which, max_ancestors, request):
         np.testing.assert_allclose(got, ti.mica_matrix(idxs), rtol=0, atol=1e-6)
         np.testing.assert_allclose(lin, TLin(ti).similarity_matrix(terms), rtol=0, atol=1e-6)
         np.testing.assert_allclose(lin, JLin(ji).similarity_matrix(terms), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("which", ["mini", "deep", "synthetic"])
+def test_ancestor_rows_are_the_bitset_rows(which, request, monkeypatch):
+    """The vectorised row builder, in blocks of a few rows: each row is
+    GoGraph._bits_to_indices of the term's ancestor bitset (the port's and
+    the JAX package's), with its ICs; ancestor_lists built on it equals the
+    JAX package's ancestor_lists, exact and truncated (rows cut in top-IC
+    order by the reference's own sort)."""
+    jg, ji, tg, ti, terms = request.getfixturevalue(which)
+    idxs = [jg.term_index(t) for t in terms if jg.term_index(t) is not None]
+    idxs = idxs + idxs[:2]  # a repeated term
+    monkeypatch.setattr(tsim, "ROW_BLOCK_WORDS", 3 * tg.ancestor_bitsets().shape[1])
+    offsets, ids, ic = tsim.ancestor_rows(ti, idxs)
+    assert offsets.dtype == np.int64 and ids.dtype == np.int32 and ic.dtype == np.float32
+    bits_t, bits_j = tg.ancestor_bitsets(), jg.ancestor_bitsets()
+    for r, term in enumerate(idxs):
+        row = ids[offsets[r]:offsets[r + 1]]
+        np.testing.assert_array_equal(row, TGraph._bits_to_indices(bits_t[term]))
+        np.testing.assert_array_equal(row, JGraph._bits_to_indices(bits_j[term]))
+        np.testing.assert_array_equal(ic[offsets[r]:offsets[r + 1]],
+                                      ti.ic[row].astype(np.float32))
+    longest = int(np.diff(offsets).max())
+    for cut in (None, 64, 3, max(1, longest - 1)):
+        j_ids, j_ic = jsim.ancestor_lists(ji, idxs, cut)
+        t_ids, t_ic = tsim.ancestor_lists(ti, idxs, cut)
+        np.testing.assert_array_equal(t_ids, j_ids)
+        np.testing.assert_array_equal(t_ic, j_ic)
+
+
+def test_ancestor_rows_of_no_terms(mini):
+    _jg, ji, _tg, ti, _terms = mini
+    offsets, ids, ic = tsim.ancestor_rows(ti, [])
+    assert offsets.tolist() == [0] and len(ids) == len(ic) == 0
+    for a, b in zip(tsim.ancestor_lists(ti, []), jsim.ancestor_lists(ji, [])):
+        assert a.shape == b.shape == (0, 64) and a.dtype == b.dtype
 
 
 def test_truncation_differs_on_the_deep_dag(deep):

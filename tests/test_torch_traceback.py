@@ -205,7 +205,9 @@ def test_compare_sequences_and_cigar_equal_jax(seed):
 # Held against tb_walk_plain (which tb_walk runs on a CPU tensor and the
 # tests above hold against the JAX package's lax.scan through the tapes).
 
-def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps):
+def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps, reads=None):
+    """(ops, counts); each byte read is appended to `reads`, when given, as
+    (pair, step, offset from the codes' first byte)."""
     M, B, W = codes.shape
     flat = np.lib.stride_tricks.as_strided(codes, (_span(codes),), (1,))
     row_stride, pair_stride, _ = codes.strides
@@ -219,7 +221,10 @@ def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps):
                 continue
             c = min(max(j - i + band_k, 0), W - 1)
             row = min(max(i - 1, 0), M - 1)
-            code = int(flat[row * row_stride + p * pair_stride + c])
+            at = row * row_stride + p * pair_stride + c
+            code = int(flat[at])
+            if reads is not None:
+                reads.append((p, s, at))
             both = i > 0 and j > 0
             is_match = both and code >= 3
             take_diag = both and code >= 2
@@ -249,18 +254,23 @@ def _walk_inputs(seed, band_k, n=10, S=150):
     return banded_choices(*t, band_k=band_k), t[1], t[3]
 
 
+def _pair_major(codes):
+    """The same codes in the layout banded_choices hands out on the card."""
+    M, B, W = codes.shape
+    pitch = -(-M * W // 16) * 16
+    buf = torch.zeros((B, pitch), dtype=torch.uint8)
+    view = buf.as_strided((M, B, W), (W, pitch, 1))
+    view.copy_(codes)
+    assert not view.is_contiguous()
+    return view
+
+
 @pytest.mark.parametrize("pair_major", [False, True], ids=["row_major", "pair_major_view"])
 @pytest.mark.parametrize("band_k,max_steps", [(7, 60), (31, 140), (31, 9), (63, 300)])
 def test_walk_mirror_equals_plain(band_k, max_steps, pair_major):
     codes, la, lb = _walk_inputs(band_k, band_k)
-    if pair_major:  # the layout banded_choices hands out on the card
-        M, B, W = codes.shape
-        pitch = -(-M * W // 16) * 16
-        buf = torch.zeros((B, pitch), dtype=torch.uint8)
-        view = buf.as_strided((M, B, W), (W, pitch, 1))
-        view.copy_(codes)
-        codes = view
-        assert not codes.is_contiguous()
+    if pair_major:
+        codes = _pair_major(codes)
     ops, counts = tb_walk(codes, la, lb, band_k=band_k, max_steps=max_steps)
     p_ops, p_counts = tb_walk_plain(codes, la, lb, band_k=band_k, max_steps=max_steps)
     assert torch.equal(ops, p_ops) and torch.equal(counts, p_counts)
@@ -268,6 +278,36 @@ def test_walk_mirror_equals_plain(band_k, max_steps, pair_major):
     assert m_ops.shape == tuple(ops.shape) and m_counts.dtype == np.int32
     np.testing.assert_array_equal(m_ops, ops.numpy())
     np.testing.assert_array_equal(m_counts, counts.numpy())
+
+
+@pytest.mark.parametrize("pair_major", [False, True], ids=["row_major", "pair_major_view"])
+@pytest.mark.parametrize("band_k", [7, 31])
+def test_walk_latency_bound_counts_each_warps_new_lines(band_k, pair_major):
+    """chip_smoke.walk_new_lines, which prices the walk's latency bound,
+    against the mirror's own reads: each pair's live steps, and those whose
+    128-byte line no pair of its warp (32 pairs) read at an earlier step."""
+    import chip_smoke
+
+    B = 40
+    codes, la, lb = _walk_inputs(band_k, band_k, n=B)
+    if pair_major:
+        codes = _pair_major(codes)
+    reads = []
+    ops, counts = walk_mirror(codes.numpy(), la.numpy(), lb.numpy(), band_k, 200, reads)
+    assert (ops[:, -1] == 0).all()
+    first = {}
+    for p, s, at in reads:
+        key = (p // 32, (codes.data_ptr() + at) // 128)
+        first[key] = min(first.get(key, s), s)
+    want_new, want_live = np.zeros(B, np.int64), np.zeros(B, np.int64)
+    for p, s, at in reads:
+        want_live[p] += 1
+        want_new[p] += first[(p // 32, (codes.data_ptr() + at) // 128)] == s
+    new, live = chip_smoke.walk_new_lines(codes, la, lb, band_k, torch.as_tensor(ops),
+                                          torch.as_tensor(counts))
+    np.testing.assert_array_equal(live, want_live)
+    np.testing.assert_array_equal(new, want_new)
+    assert 0 < new.sum() < live.sum()
 
 
 def test_walk_mirror_saturated_runs_and_arbitrary_codes():
