@@ -6,7 +6,7 @@
 Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
 host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
 kernel against its plain PyTorch version on the card (exact equality),
-and drives seven paths, each with the launch counts set to 0 just before
+and drives eight paths, each with the launch counts set to 0 just before
 and read just after where it launches a kernel:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
@@ -109,7 +109,24 @@ and read just after where it launches a kernel:
      first: the line says how many were held), a few entries equal the
      numpy DP, and batched_metric's local and global coding metrics over
      the same pairs equal the matrix and B3. It prints the checkpointed
-     streaming seconds beside the native ingest's.
+     streaming seconds beside the native ingest's;
+  8. the application shell (phase 3h): run_application(GeneExecEnv,
+     ["--optionFile", runtime.xml, "--device", "cuda"]), what
+     `python -m kgl_gene_tpu_torch.app.exec_env` runs, on one runtime XML
+     with the nine registered analyses in two packages (NULL, INTERVAL,
+     INFO_FILTER, INBREED, PfSEQUENCE, PfEMP and MUTATION over phase 3c's
+     VCF; NULL, PARSEJSON and LITERATURE over a dbSNP JSON) with every
+     resource kind they read (genome with GAF, ontology, genealogy,
+     genome aux, citations, Pf7 samples, FWS and distance, bioPMID,
+     Entrez, and a PubMed cache the phase writes), counts from 0. It
+     fails unless the run returns 0, no analysis is dropped, B1 and B2
+     launch, no request leaves the machine (urlopen refuses and counts),
+     every publication comes from the cache, and every file of the port's
+     CPU run of the same XML, whose PfSEQUENCE names one gene
+     (PACKAGE_CPU_GENES) and whose all-pairs tree takes the card's exact
+     route at band 127 (BandedCpuTree), equals the card run's file
+     (inbreeding.csv's F within ESTIMATOR_ATOL). It prints the seconds of
+     each analysis on both runs, the files and the launches.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -126,11 +143,17 @@ copy the query, the 64-row block and 2,048-row slot edges, queries of one
 and several 4,096-row stripes up to 5,000 rows and 12,300-wide rows, and
 the pad rows ahead of a query (lq = 1, 63, 65 and multiples of 64 to
 12,288, codes outside 0..31). The local rows are timed in turns with B3 on
-the same pairs. The walk's row also carries a latency bound: each pair's
+the same pairs. The walk's row also carries latency bounds: each pair's
 live steps at the L2 hit latency where the step reads a line new to its
 warp and at the L1 hit latency otherwise, its trips after the end at two
-stores a cycle each, the longest pair's sum; the latencies come from a
-pointer chase of one thread (csrc/chase.cu).
+stores a cycle each, the longest pair's sum (warm, the codes in the L2 as
+back-to-back walks find them); and the same with the new lines outside the
+last 50 MB that B4 wrote at the device-memory hop (cold, each walk right
+after a fresh B4, as reference_cigars runs it); the latencies come from a
+pointer chase of one thread (csrc/chase.cu) over 16 KB, 8 MB and 1 GB.
+The walk is timed warm and cold beside its first design
+(kgt_walk_pair_major: pair-major tapes, every trip; launched from
+scripts/torch_kernel_bodies.py).
 
 Then it times the step, the family path and each kernel; the family
 path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
@@ -149,14 +172,17 @@ Output: progress lines, then one JSON line {"device_functions": [...]}
 {"scale": {...}} (phase 3d's stages and checks), one {"phylo": {...}}
 (phase 3e's rates and checks), one {"ontology": {...}} (phase 3f's stages,
 sizes, checks and the MICA kernel's times and bounds), one
-{"checkpoint_local": {...}} (phase 3g's seconds and checks), one {"kernels":
+{"checkpoint_local": {...}} (phase 3g's seconds and checks), one
+{"package": {...}} (phase 3h's seconds by analysis, files and launches),
+one {"kernels":
 [...]} of ten rows (`local` at B = 256 against the shared reference and
 `local_pool` over the 32,640 pairs are the local kernel's; the rows of
 B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
 issue floor, and it carries design_issue_ms; the walk's carries
-latency_bound_ms), the card's
+cold_ms, latency_bound_ms, cold_latency_bound_ms and its first design's
+times), the card's
 name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -167,6 +193,7 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import json
+import math
 import multiprocessing
 import os
 import resource
@@ -205,7 +232,13 @@ BANDED_CHOICES_OPS_PER_CELL = 15
 CHASE_L1_BYTES = 16 << 10
 CHASE_L2_BYTES = 8 << 20
 CHASE_HOPS = 100_000
+# A third footprint, 20x the L2, for the device-memory hop: a line of a
+# random cycle over it is in the L2 about one time in twenty.
+CHASE_DRAM_BYTES = 1 << 30
+CHASE_DRAM_HOPS = 20_000
 WALK_STORES_PER_TRIP = 2
+L2_BYTES = 50 << 20  # the H100's L2: the last codes B4 wrote that it can hold
+WALK_COLD_REPS = 15  # walks timed each right after a fresh B4
 FAMILY_LOCAL_RECORDS = 16  # the local metric's plain CPU run is slow at 3 kb
 # The product path at bench.py's end-to-end shape (bench.py:139-142 and
 # :152): 256 samples, four single-exon genes of 3,000 coding bases on a
@@ -1148,6 +1181,36 @@ def config_a_records(dev):
     return family_records(out, inp, region)
 
 
+def walk_steps(ref_len, lens, k):
+    """The tape length reference_cigars gives the walk
+    (ops/traceback.banded_traceback_ops)."""
+    M = max(ref_len, int(lens.max()), 1)
+    return int(min(ref_len + int(lens.max()), 2 * k + 1 + (M + 252) // 253 + 8))
+
+
+def family_walk_case(dev, k=127):
+    """Phase 4's walk inputs, for timing the walk alone
+    (scripts/torch_kernel_bodies.py): (choices, rl, plens, k, steps), where
+    choices() runs B4 over phase 3b's distinct mutants against their
+    reference and returns fresh codes."""
+    import torch
+
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
+    from kgl_gene_tpu_torch.ops.banded import banded_choices
+    from kgl_gene_tpu_torch.sequence.alphabet import DNA5
+
+    records, ref = config_a_records(dev)
+    fam = TranscriptFamilyAnalysis(records, ref, device=dev)
+    seqs, lens = fam._padded_codes(list(fam.distinct_sequences()))
+    n = seqs.shape[0]
+    pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
+    plens = torch.as_tensor(lens, device=dev)
+    ref_t = torch.as_tensor(np.tile(DNA5.from_string(ref).astype(np.int32), (n, 1)), device=dev)
+    rl = torch.full((n,), len(ref), dtype=torch.int32, device=dev)
+    choices = functools.partial(banded_choices, ref_t, rl, pool, plens, band_k=k)
+    return choices, rl, plens, k, walk_steps(len(ref), lens, k)
+
+
 def cigar_lengths(cigar):
     import re
 
@@ -1317,25 +1380,54 @@ def phase_wide_cigars(dev, errs):
 
 
 def load_latency_ns(dev, windows=3):
-    """{"l1_ns", "l2_ns"}: the ns of one dependent load, a hop of kernel
-    kgt_chase (csrc/chase.cu): one thread over a random cycle of 128-byte
-    lines, CHASE_L1_BYTES with loads that cache in the L1, CHASE_L2_BYTES
-    with loads that skip it. The median over `windows` of the difference
-    between 2 * h and h hops, over h, so the launch drops out."""
+    """{"l1_ns", "l2_ns", "dram_ns"}: the ns of one dependent load, a hop
+    of kernel kgt_chase (csrc/chase.cu): one thread from word 0 around a
+    cycle of 128-byte lines, CHASE_L1_BYTES in random order with loads
+    that cache in the L1, CHASE_L2_BYTES in random order with loads that
+    skip it (.cg), and CHASE_DRAM_BYTES with .cg loads for the hop to
+    device memory. The median over `windows` of the difference between
+    2 * h and h hops, over h, so the launch drops out.
+
+    The device-memory cycle is built anew on the card before each timed
+    run, so no run finds the lines of the one before in the L2, and it
+    visits the lines of one 2 MB page in random order before it moves to
+    another page (pages in random order): the hop then prices a line's
+    trip to device memory, not a miss of the address translation, as a
+    walk's pair stays in its own 765 KB of codes."""
     import torch
 
     from kgl_gene_tpu_torch import kernels
 
     rng = np.random.default_rng(SEED)
     out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def random_cycle(words):
+        lines = torch.as_tensor(np.r_[0, rng.permutation(np.arange(1, words // 32))] * 32,
+                                device=dev)
+        nxt = torch.zeros(words, dtype=torch.int32, device=dev)
+        nxt[lines] = lines.roll(-1).to(torch.int32)
+        return nxt
+
+    page_lines = (2 << 20) // 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    dram = torch.zeros(CHASE_DRAM_BYTES // 4, dtype=torch.int32, device=dev)
+
+    def page_cycle(_words):
+        pages = CHASE_DRAM_BYTES // (2 << 20)
+        local = torch.rand((pages, page_lines), generator=gen, device=dev).argsort(1)
+        order = torch.randperm(pages, generator=gen, device=dev)
+        lines = (order[:, None] * page_lines + local[order]).flatten()
+        lines = lines.roll(-int((lines == 0).nonzero()[0])) * 32  # start at word 0
+        dram[lines] = lines.roll(-1).to(torch.int32)
+        return dram
+
     got = {}
-    for key, nbytes, l2_only, hops in (("l1_ns", CHASE_L1_BYTES, 0, CHASE_HOPS),
-                                       ("l2_ns", CHASE_L2_BYTES, 1, CHASE_HOPS)):
-        words = nbytes // 4
-        lines = np.r_[0, rng.permutation(np.arange(1, words // 32))] * 32
-        nxt = np.zeros(words, np.uint32)
-        nxt[lines] = np.roll(lines, -1)
-        nxt_t = torch.as_tensor(nxt.view(np.int32), device=dev)
+    for key, nbytes, l2_only, hops, build, fresh in (
+            ("l1_ns", CHASE_L1_BYTES, 0, CHASE_HOPS, random_cycle, False),
+            ("l2_ns", CHASE_L2_BYTES, 1, CHASE_HOPS, random_cycle, False),
+            ("dram_ns", CHASE_DRAM_BYTES, 1, CHASE_DRAM_HOPS, page_cycle, True)):
+        nxt_t = build(nbytes // 4)
 
         def chase(h):
             kernels.launch("chase", "kgt_chase", nxt_t.device, nxt_t.data_ptr(), h, l2_only,
@@ -1347,6 +1439,9 @@ def load_latency_ns(dev, windows=3):
         for _ in range(windows):
             ms = []
             for h in (hops, 2 * hops):
+                if fresh:
+                    nxt_t = build(nbytes // 4)
+                    torch.cuda.synchronize()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -1356,21 +1451,68 @@ def load_latency_ns(dev, windows=3):
                 ms.append(start.elapsed_time(end))
             per.append((ms[1] - ms[0]) / hops * 1e6)
         got[key] = statistics.median(per)
+        del nxt_t
+    del dram
     return got
 
 
-def walk_new_lines(codes, la, lb, band_k, ops, counts):
+def time_after(prep, fns, reps):
+    """For each fn of `fns` the median ms on the card of fn(prep()) over
+    `reps` calls, CUDA events around the fn alone, each call right after a
+    fresh prep() (the fns take turns), so fn finds the card as prep left
+    it: its L2 holding the end of what prep wrote."""
+    import torch
+
+    marks = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, mine in zip(fns, marks):
+            arg = prep()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(arg)
+            end.record()
+            mine.append((start, end))
+            del arg
+    torch.cuda.synchronize()
+    return [statistics.median(s.elapsed_time(e) for s, e in mine) for mine in marks]
+
+
+def walk_latency_bounds(codes, la, lb, band_k, ops, counts, steps, lat):
+    """(warm_ms, cold_ms, pair, new, live) of the walk's latency bound:
+    each pair's live steps priced as dependent loads (walk_new_lines), the
+    longest pair's sum, as pairs run side by side. Warm (the codes already
+    in the L2, as back-to-back walks find them): a step to a line new to
+    its warp pays the L2 hit latency, any other the L1's. Cold (right
+    after B4 wrote them, as reference_cigars runs the walk): a new line
+    that lies outside the last L2_BYTES B4 wrote (B4 writes every pair's
+    rows in order, so the rows at or above M - L2_BYTES / (B * W)) pays
+    the device-memory hop instead. The trips after a pair's end store its
+    two tape entries, at one instruction a cycle, in both."""
+    M, B, W = codes.shape
+    new, live, new_dram = walk_new_lines(codes, la, lb, band_k, ops, counts,
+                                         cached_rows=L2_BYTES // (B * W))
+    tail_ms = (steps - live) * WALK_STORES_PER_TRIP / sm_max_clock_hz() * 1e3
+    warm = (new * lat["l2_ns"] + (live - new) * lat["l1_ns"]) * 1e-6 + tail_ms
+    cold = warm + new_dram * (lat["dram_ns"] - lat["l2_ns"]) * 1e-6
+    pair = int(warm.argmax())
+    return float(warm.max()), float(cold.max()), pair, new, live
+
+
+def walk_new_lines(codes, la, lb, band_k, ops, counts, cached_rows=None):
     """(new, live): for each pair of a walk (csrc/walk.cu's arithmetic,
     replayed from its tapes), its live steps, and those whose code byte
     lies on a 128-byte line that no pair of its warp (32 pairs) read at an
-    earlier step, as numpy arrays."""
+    earlier step, as numpy arrays. With `cached_rows`, also the count of
+    those new lines on a row below the last `cached_rows` rows:
+    (new, live, new_below)."""
     M, B, W = codes.shape
     rs, ps = codes.stride(0), codes.stride(1)
     ops, counts = ops.cpu().numpy(), counts.cpu().numpy()
     i = np.maximum(la.cpu().numpy().astype(np.int64), 0)
     j = np.maximum(lb.cpu().numpy().astype(np.int64), 0)
     pair = np.arange(B)
-    keys, steps = [], []
+    keys, steps, rows = [], [], []
     for s in range(ops.shape[1]):
         live = ops[:, s] != 0
         c = np.clip(j - i + band_k, 0, W - 1)
@@ -1378,6 +1520,7 @@ def walk_new_lines(codes, la, lb, band_k, ops, counts):
         line = (codes.data_ptr() + row * rs + pair * ps + c) // 128
         keys.append(np.where(live, (pair // 32) * (1 << 48) + line, -1))
         steps.append(np.full(B, s))
+        rows.append(row)
         cnt = counts[:, s].astype(np.int64)
         i = i - np.where(live & (ops[:, s] != 4), cnt, 0)  # every op but left moves up
         j = j - np.where(live & (ops[:, s] != 3), cnt, 0)  # every op but up moves left
@@ -1390,7 +1533,10 @@ def walk_new_lines(codes, la, lb, band_k, ops, counts):
     np.minimum.at(first, inv, steps[live])
     new = np.zeros_like(live)
     new[live] = first[inv] == steps[live]
-    return new.sum(1), live.sum(1)
+    if cached_rows is None:
+        return new.sum(1), live.sum(1)
+    below = new & (np.stack(rows, 1) < M - cached_rows)
+    return new.sum(1), live.sum(1), below.sum(1)
 
 
 def bound(ops, nbytes):
@@ -1546,51 +1692,64 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=ops))
 
     # The walk over those codes, at the tape length reference_cigars gives
-    # it. Its work depends on the data: the bound counts one 32-byte sector
-    # read for each live step of each pair and the tapes written once.
-    M = max(len(ref), int(lens.max()), 1)
-    steps = int(min(len(ref) + int(lens.max()), 2 * k + 1 + (M + 252) // 253 + 8))
+    # it, beside its first design (kgt_walk_pair_major; reachable
+    # from scripts/torch_kernel_bodies.py only). Its work depends on the
+    # data: the bound counts one 32-byte sector read for each live step of
+    # each pair and the tapes written once.
+    steps = walk_steps(len(ref), lens, k)
+    bodies = kernel_bodies()
     walk = functools.partial(tb_walk, codes, rl, plens, band_k=k, max_steps=steps)
+    old_walk = functools.partial(bodies.walk_pair_major, codes, rl, plens, band_k=k,
+                                 max_steps=steps)
     walk_plain = functools.partial(tb_walk_plain, codes, rl, plens, band_k=k, max_steps=steps)
     got, want = walk(), walk_plain()
+    old_got = old_walk()
     errs["walk"] = max(errs["walk"],
                        exact(f"walk ops (B={n}, k={k}, {steps} steps, the family's codes)",
                              got[0], want[0]),
-                       exact("walk counts, the same", got[1], want[1]))
+                       exact("walk counts, the same", got[1], want[1]),
+                       exact("the first design's walk ops, the same", old_got[0], want[0]),
+                       exact("the first design's walk counts, the same", old_got[1], want[1]))
+    del old_got
     live = int((got[0] != 0).sum())
-    ms = time_cuda(walk, 20, windows=3)
-    d_ms = time_device([walk], 10)
+    ms, old_ms = time_cuda_turns([walk, old_walk], 20, windows=3)
+    d_ms, old_d_ms = time_device([walk], 10), time_device([old_walk], 10)
     p_ms = time_cuda(walk_plain, 1, windows=3, warm=False)
+    # As reference_cigars runs it: each walk right after a fresh B4 over
+    # the same inputs, which leaves the L2 holding the last rows B4 wrote.
+    cold_ms, old_cold_ms = time_after(
+        choices, [lambda c: tb_walk(c, rl, plens, band_k=k, max_steps=steps),
+                  lambda c: bodies.walk_pair_major(c, rl, plens, band_k=k, max_steps=steps)],
+        WALK_COLD_REPS)
     b_ms, by = bound(20 * live, 32 * live + n * steps * 5 + 2 * n * 4)
-    # Its latency bound, from the card's load latencies (load_latency_ns):
+    # Its latency bounds, from the card's load latencies (load_latency_ns):
     # each live step's byte is a load whose address the step before
-    # computed. A step reading a 128-byte line that no pair of its warp
-    # read at an earlier step pays the L2 hit latency at least (the codes
-    # came from another launch, so the SM's L1 holds none of them), any
-    # other the L1 hit latency; the trips after a pair's end only store
-    # its two tape entries, at one instruction a cycle. Pairs run side by
-    # side, so the walk takes at least its longest pair's sum.
+    # computed (walk_latency_bounds).
     lat = load_latency_ns(dev)
-    new_lines, live_p = walk_new_lines(codes, rl, plens, k, got[0], got[1])
-    per_pair = ((new_lines * lat["l2_ns"] + (live_p - new_lines) * lat["l1_ns"]) * 1e-6
-                + (steps - live_p) * WALK_STORES_PER_TRIP / sm_max_clock_hz() * 1e3)
-    worst = int(per_pair.argmax())
-    latency_ms = float(per_pair[worst])
+    latency_ms, cold_latency_ms, worst, new_lines, live_p = walk_latency_bounds(
+        codes, rl, plens, k, got[0], got[1], steps, lat)
     one = functools.partial(tb_walk, codes[:, worst:worst + 1], rl[worst:worst + 1],
                             plens[worst:worst + 1], band_k=k, max_steps=steps)
     exact("walk of the bound's pair alone, the same tapes", one()[0], got[0][worst:worst + 1])
     log(f"  walk kernel B={n}, k={k}, {steps} steps, {live} live steps ({live / n:.1f} a pair): "
-        f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device; plain PyTorch loop {p_ms:.6f} ms; "
-        f"load latency L1 {lat['l1_ns']:.2f} ns, L2 {lat['l2_ns']:.2f} ns (pointer chase); "
-        f"latency bound {latency_ms:.6f} ms (pair {worst}: {int(live_p[worst])} live steps, "
-        f"{int(new_lines[worst])} of them to a new line; {latency_ms / d_ms:.1%} of the device "
-        f"time)")
+        f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device, {cold_ms:.6f} ms right after B4; "
+        f"the first design (pair-major tapes, every trip) {old_ms:.6f} / {old_d_ms:.6f} / "
+        f"{old_cold_ms:.6f} ms; plain PyTorch loop {p_ms:.6f} ms; load latency L1 "
+        f"{lat['l1_ns']:.2f} ns, L2 {lat['l2_ns']:.2f} ns, device memory {lat['dram_ns']:.2f} ns "
+        f"(pointer chase); latency bound {latency_ms:.6f} ms warm ({latency_ms / d_ms:.1%} of the "
+        f"device time), {cold_latency_ms:.6f} ms right after B4 ({cold_latency_ms / cold_ms:.1%});"
+        f" pair {worst}: {int(live_p[worst])} live steps, {int(new_lines[worst])} of them to a "
+        f"new line")
     rows.append(dict(name="walk", source="kgl_gene_tpu_torch/csrc/walk.cu",
                      replaces="kgl_gene_tpu/ops/traceback.py:45",
                      shape=f"B={n}, k={k}, {steps} steps, {live} live", ms=ms, device_ms=d_ms,
+                     cold_ms=cold_ms, pair_major_body_ms=old_ms,
+                     pair_major_body_device_ms=old_d_ms, pair_major_body_cold_ms=old_cold_ms,
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live,
-                     latency_bound_ms=latency_ms, l1_latency_ns=lat["l1_ns"],
-                     l2_latency_ns=lat["l2_ns"], latency_pair_live_steps=int(live_p[worst]),
+                     latency_bound_ms=latency_ms, cold_latency_bound_ms=cold_latency_ms,
+                     l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
+                     dram_latency_ns=lat["dram_ns"],
+                     latency_pair_live_steps=int(live_p[worst]),
                      latency_pair_new_lines=int(new_lines[worst])))
     del codes, got, want
 
@@ -2974,8 +3133,8 @@ def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
 
 
 def kernel_bodies():
-    """scripts/torch_kernel_bodies.py as a module: the first MICA design's
-    launch and wrapper live there. The script imports nothing of this one
+    """scripts/torch_kernel_bodies.py as a module: the first designs of the
+    MICA kernel and of the walk are launched from there. The script imports nothing of this one
     at its top, so loading it here runs no second copy."""
     import importlib.util
 
@@ -3231,6 +3390,428 @@ def phase_ontology(dev, workdir, errs):
 
 
 
+# --------------------------------------------------------------------------- #
+# Phase 3h: the application shell, one runtime XML with the nine analyses
+# --------------------------------------------------------------------------- #
+# Gene descriptions that put two of phase 3c's genes into PfEMP's families
+# (kgl_gene_tpu_torch/analysis/pfemp_analysis.py PF_GENE_FAMILIES).
+PACKAGE_FAMILIES = {"G1": "rifin", "G2": "stevor"}
+PACKAGE_PMIDS = 40           # publications in the generated bioPMID / dbSNP / PubMed cache
+PACKAGE_CITED_EVERY = 10     # one record in ten has a dbSNP citation
+PACKAGE_DISTANCE_SAMPLES = 32  # samples of the Pf7 distance matrix
+PACKAGE_CPU_GENES = "G0"     # the CPU run's PfSEQUENCE GeneList
+PACKAGE_ANALYSES = ("NULL", "INTERVAL", "INFO_FILTER", "INBREED", "PfSEQUENCE", "PfEMP",
+                    "MUTATION", "PARSEJSON", "LITERATURE")
+PACKAGE_GO = ("GO:0008150", "GO:0009987", "GO:0008152", "GO:0003674", "GO:0005488")
+
+
+def _pubmed_efetch_xml(pmid, rng):
+    year, month = 2000 + int(rng.integers(0, 24)), ("Jan", "Mar", "Jun", "Oct")[pmid % 4]
+    authors = "".join(f"<Author><LastName>Author{int(a)}</LastName><Initials>A</Initials>"
+                      "</Author>" for a in rng.choice(12, 2, replace=False))
+    return (f'<PubmedArticleSet><PubmedArticle><MedlineCitation>'
+            f'<PMID Version="1">{pmid}</PMID><Article><Journal><JournalIssue>'
+            f'<Volume>{pmid % 50}</Volume><Issue>{pmid % 7}</Issue><PubDate><Year>{year}</Year>'
+            f'<Month>{month}</Month></PubDate></JournalIssue><Title>Journal {pmid % 5}</Title>'
+            f'</Journal><ArticleTitle>Synthetic study {pmid} of gene families.</ArticleTitle>'
+            f'<AuthorList>{authors}</AuthorList></Article></MedlineCitation>'
+            f'</PubmedArticle></PubmedArticleSet>\n')
+
+
+def write_package_inputs(workdir, paths, seed=SEED):
+    """Phase 3h's inputs beside a generate_population_files triple `paths`:
+    the GFF3 with two genes described as PfEMP families, a GAF and a small
+    OBO over its genes, a PED genealogy and a genome-aux table of its
+    samples, allele citations and a dbSNP JSON over every
+    PACKAGE_CITED_EVERY-th record, Pf7 sample metadata (about three in four
+    QC pass), FWS values and a distance matrix over the first
+    PACKAGE_DISTANCE_SAMPLES samples, bioPMID and Entrez tables for the
+    genes, and a PubMed cache directory holding every publication these
+    name and its citations, so that no lookup needs the network (records
+    without an XML declaration, which the JAX package's cache reader reads
+    past its first record only where they have none). Returns the paths by
+    name."""
+    from kgl_gene_tpu_torch.analysis.mutation_analysis import SUPER_POPS
+    from kgl_gene_tpu_torch.literature.pubmed import CITATION_CACHE, PUBLICATION_CACHE
+
+    rng = np.random.default_rng(seed)
+    out = {"fasta": paths.fasta, "vcf": paths.vcf}
+    samples = [f"S{i:04d}" for i in range(paths.n_samples)]
+    genes = [f"G{g}" for g in range(paths.n_genes)]
+    pmids = [30_000_001 + i for i in range(PACKAGE_PMIDS)]
+
+    def write(name, text):
+        out[name] = os.path.join(workdir, name)
+        with open(out[name], "w") as f:
+            f.write(text)
+
+    with open(paths.gff3) as f:
+        gff = []
+        for line in f:
+            cols = line.rstrip("\n").split("\t")
+            if len(cols) == 9 and cols[2] == "gene":
+                gid = cols[8].split("ID=")[1].split(";")[0]
+                if gid in PACKAGE_FAMILIES:
+                    cols[8] += f";description={PACKAGE_FAMILIES[gid]}"
+            gff.append("\t".join(cols))
+    write("package.gff3", "\n".join(gff) + "\n")
+    write("package.obo", "".join(
+        f"[Term]\nid: {go}\nnamespace: "
+        f"{'molecular_function' if go in PACKAGE_GO[3:] else 'biological_process'}\n"
+        + (f"is_a: {PACKAGE_GO[0 if i < 3 else 3]}\n" if i not in (0, 3) else "") + "\n"
+        for i, go in enumerate(PACKAGE_GO)))
+    write("package.gaf", "!gaf-version: 2.1\n" + "".join(
+        "\t".join(["SYN", g, g, "", go, "PMID:1", "IEA", "", "F" if go in PACKAGE_GO[3:] else "P",
+                   "", "", "protein", "taxon:5833", "20240101", "SYN"]) + "\n"
+        for g in genes for go in rng.choice(PACKAGE_GO, 2, replace=False)))
+    pops = rng.choice(SUPER_POPS, len(samples))
+    sexes = rng.integers(1, 3, len(samples))
+    write("genealogy.ped", "Family\tIndividual\tPaternal\tMaternal\tSex\tPheno\tPopulation\t"
+          "PopDesc\n" + "".join(f"F{i // 4}\t{s}\t0\t0\t{sex}\t0\t{p}_sub\td\n"
+                                for i, (s, sex, p) in enumerate(zip(samples, sexes, pops))))
+    write("genome_aux.tsv", "Individual\tSex\tPopulation\tPopDesc\tSuperPopulation\tSuperDesc\n"
+          + "".join(f"{s}\t{'male' if sex == 1 else 'female'}\t{p}_sub\td\t{p}\td\n"
+                    for s, sex, p in zip(samples, sexes, pops)))
+    cited = range(0, paths.n_records, PACKAGE_CITED_EVERY)
+    cites = {r: sorted(rng.choice(pmids, int(rng.integers(1, 4)), replace=False).tolist())
+             for r in cited}
+    write("citations.tsv", "".join(f"rs{r}\t{p}\n" for r, ps in cites.items() for p in ps))
+    write("dbsnp.json", "".join(json.dumps({"refsnp_id": str(r), "citations": ps}) + "\n"
+                                for r, ps in cites.items()))
+    qc = rng.random(len(samples)) < 0.75
+    lat, lon = rng.uniform(-15, 15, len(samples)), rng.uniform(-15, 40, len(samples))
+    write("pf7_samples.tsv", "Sample\tStudy\tCountry\tSite\tclat\tclon\tlat\tlon\tYear\tENA\t"
+          "All\tPopulation\tCallable\tQC pass\tFail reason\tType\tInPf6\n" + "".join(
+              f"{s}\tst\tC{i % 9}\tL{i % 17}\t0\t0\t{lat[i]:.4f}\t{lon[i]:.4f}\t2019\tE{i}\tT\t"
+              f"AF\t0.9\t{'True' if qc[i] else 'False'}\t{'' if qc[i] else 'low'}\tWGS\tF\n"
+              for i, s in enumerate(samples)))
+    write("pf7_fws.tsv", "Sample\tFWS\n" + "".join(
+        f"{s}\t{v:.4f}\n" for s, v in zip(samples, rng.uniform(0.5, 1.0, len(samples)))))
+    m = PACKAGE_DISTANCE_SAMPLES
+    dist = rng.uniform(0, 0.3, (m, m))
+    dist = np.triu(dist, 1) + np.triu(dist, 1).T
+    write("pf7_distance_ids.tsv", "".join(f"{s}\n" for s in samples[:m]))
+    write("pf7_distance.tsv", "".join("\t".join(f"{v:.5f}" for v in row) + "\n" for row in dist))
+    entrez = {g: str(7_000 + i) for i, g in enumerate(genes)}
+    write("entrez.tsv", "Symbol\tEntrez\n" + "".join(f"{g}\t{e}\n" for g, e in entrez.items()))
+    write("biopmid.tsv", "".join(
+        f"{p}\tGene\t{entrez[g]}\n" for g in genes
+        for p in rng.choice(pmids, 5, replace=False).tolist()) + f"{pmids[0]}\tDisease\tD001\n")
+    cache = os.path.join(workdir, "pubmed_cache")
+    os.makedirs(cache, exist_ok=True)
+    out["pubmed_cache"] = cache
+    with open(os.path.join(cache, PUBLICATION_CACHE), "w") as f:
+        for p in pmids:
+            f.write(_pubmed_efetch_xml(p, rng) + "\n<!--CACHE-RECORD-->\n")
+    with open(os.path.join(cache, CITATION_CACHE), "w") as f:
+        for p in pmids:
+            cited_by = "".join(f"<Link><Id>{c}</Id></Link>"
+                               for c in rng.choice(pmids, int(rng.integers(0, 6)), replace=False))
+            f.write(f'<eLinkResult><LinkSet><IdList><Id>{p}</Id></IdList>'
+                    f'<LinkSetDb><LinkName>pubmed_pubmed_citedin</LinkName>{cited_by}'
+                    f'</LinkSetDb></LinkSet></eLinkResult>\n<!--CACHE-RECORD-->\n')
+    out["genes"] = genes
+    return out
+
+
+def write_package_xml(path, inputs, work_dir, gene_list=None):
+    """A runtime XML with the nine analyses in two packages: the VCF's
+    (NULL, INTERVAL, INFO_FILTER, INBREED, PfSEQUENCE, PfEMP, MUTATION, on
+    the genome, ontology, genealogy, genome-aux, citation and Pf7
+    resources) and the dbSNP JSON's (NULL, PARSEJSON, LITERATURE, on the
+    bioPMID, Entrez and PubMed resources). `gene_list` names PfSEQUENCE's
+    genes (all protein-coding genes when None)."""
+    from xml.sax.saxutils import escape
+
+    def resource(rtype, ident, **params):
+        return (f"<resource><resourceType>{rtype}</resourceType><resourceIdent>{ident}"
+                f"</resourceIdent>" + "".join(f"<{k}>{escape(v)}</{k}>" for k, v in params.items())
+                + "</resource>")
+
+    def block(name, **params):
+        return (f"<parameterBlock><blockName>{name}</blockName>" + "".join(
+            f"<parameter><name>{k}</name><value>{escape(v)}</value></parameter>"
+            for k, v in params.items()) + "</parameterBlock>")
+
+    def package(ident, resources, files, analyses):
+        return (f"<package><packageIdent>{ident}</packageIdent><resourceList>"
+                + "".join(f"<resourceIdent>{r}</resourceIdent>" for r in resources)
+                + "</resourceList><iterationList><iteration>"
+                + "".join(f"<fileIdent>{f}</fileIdent>" for f in files)
+                + "</iteration></iterationList><analysisList>"
+                + "".join(f"<analysisIdent>{a}</analysisIdent>" for a in analyses)
+                + "</analysisList></package>")
+
+    seq = dict(DistanceMetric="GLOBAL", **({"GeneList": gene_list} if gene_list else {}))
+    xml = (
+        f'<?xml version="1.0"?>\n<runTime><workDirectory>{escape(work_dir)}</workDirectory>'
+        "<executeList><active>vcfPackage</active><active>literaturePackage</active></executeList>"
+        "<packageList>"
+        + package("vcfPackage", ["genome", "ontology", "genealogy", "genomeAux", "citations",
+                                 "pf7Sample", "pf7Fws", "pf7Distance"], ["popVCF"],
+                  ["NULL", "INTERVAL", "INFO_FILTER", "INBREED", "PfSEQUENCE", "PfEMP",
+                   "MUTATION"])
+        + package("literaturePackage", ["bioPMID", "entrez", "pubmed"], ["dbsnpJSON"],
+                  ["NULL", "PARSEJSON", "LITERATURE"])
+        + "</packageList><analysisList>"
+        + "".join(f"<analysis><analysisIdent>{a}</analysisIdent><parameterIdent>{b}"
+                  "</parameterIdent></analysis>"
+                  for a, b in (("INTERVAL", "intervalParams"), ("INBREED", "inbreedParams"),
+                               ("PfSEQUENCE", "seqParams"), ("LITERATURE", "litParams")))
+        + "</analysisList><parameterList>"
+        + block("intervalParams", IntervalSize="1000")
+        + block("inbreedParams", Algorithm="ALL", AnalysisType="Inbreed")
+        + block("seqParams", **seq)
+        + block("litParams", GeneList=",".join(inputs["genes"]))
+        + "</parameterList><dataFileList>"
+        + f"<dataFile><fileIdent>popVCF</fileIdent><fileName>{escape(inputs['vcf'])}</fileName>"
+          "<parser>PF_DIPLOID</parser><evidenceIdent>vcfEvidence</evidenceIdent></dataFile>"
+        + f"<dataFile><fileIdent>dbsnpJSON</fileIdent><fileName>{escape(inputs['dbsnp.json'])}"
+          "</fileName><parser>JSON_DBSNP</parser></dataFile>"
+        + "</dataFileList><resourceList>"
+        + resource("GenomeDatabase", "genome", fastaFile=inputs["fasta"],
+                   gffFile=inputs["package.gff3"], gafFile=inputs["package.gaf"])
+        + resource("OntologyDatabase", "ontology", goFile=inputs["package.obo"],
+                   annotationFile=inputs["package.gaf"])
+        + resource("Genealogy", "genealogy", file=inputs["genealogy.ped"])
+        + resource("GenomeAux", "genomeAux", file=inputs["genome_aux.tsv"])
+        + resource("Citation", "citations", file=inputs["citations.tsv"])
+        + resource("Pf7Sample", "pf7Sample", file=inputs["pf7_samples.tsv"])
+        + resource("Pf7Fws", "pf7Fws", file=inputs["pf7_fws.tsv"])
+        + resource("Pf7Distance", "pf7Distance", matrixFile=inputs["pf7_distance.tsv"],
+                   sampleFile=inputs["pf7_distance_ids.tsv"])
+        + resource("BioPMID", "bioPMID", file=inputs["biopmid.tsv"])
+        + resource("Entrez", "entrez", file=inputs["entrez.tsv"])
+        + resource("PubmedAPI", "pubmed", cacheDirectory=inputs["pubmed_cache"])
+        + "</resourceList><evidenceList><evidence><evidenceIdent>vcfEvidence</evidenceIdent>"
+          "<vcfInfoList><infoIdent>AF</infoIdent></vcfInfoList></evidence></evidenceList>"
+          "</runTime>\n")
+    with open(path, "w") as f:
+        f.write(xml)
+    return path
+
+
+class AnalysisClock:
+    """Host seconds of each registered analysis's four lifecycle calls, by
+    ident, while the block runs (the classes' methods wrapped, then put
+    back)."""
+
+    METHODS = ("initialize_analysis", "file_read_analysis", "iteration_analysis",
+               "finalize_analysis")
+
+    def __enter__(self):
+        from kgl_gene_tpu_torch.analysis import registered  # noqa: F401 - fills the registry
+        from kgl_gene_tpu_torch.app import analysis as app_analysis
+
+        self.seconds = {}
+        self._saved = []
+        for ident, cls in app_analysis._REGISTRY.items():
+            for name in self.METHODS:
+                own = vars(cls).get(name)
+                self._saved.append((cls, name, own))
+
+                def timed(*args, _fn=getattr(cls, name), _ident=ident, **kwargs):
+                    t0 = time.perf_counter()
+                    try:
+                        return _fn(*args, **kwargs)
+                    finally:
+                        self.seconds[_ident] = (self.seconds.get(_ident, 0.0)
+                                                + time.perf_counter() - t0)
+
+                setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, own in self._saved:
+            if own is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, own)
+
+
+class NoNetwork:
+    """Counts and refuses every urllib request while the block runs."""
+
+    def __enter__(self):
+        import urllib.request
+
+        self.requests = 0
+        self._orig = urllib.request.urlopen
+
+        def refuse(*args, **kwargs):
+            self.requests += 1
+            raise OSError("phase 3h: no request may leave the machine")
+
+        urllib.request.urlopen = refuse
+        return self
+
+    def __exit__(self, *exc):
+        import urllib.request
+
+        urllib.request.urlopen = self._orig
+
+
+class BandedCpuTree:
+    """While the block runs, TranscriptFamilyAnalysis's all-pairs matrix on
+    the CPU takes the card's exact route (B1's plain version at band 127
+    and the exact re-run of the pairs outside it) instead of the plain
+    exact wavefront, which takes tens of minutes over 32,640 pairs of
+    3 kb there: both routes are exact, so the matrix and the tree are the
+    same (lib_seqmutation.distance_tree_newick)."""
+
+    def __enter__(self):
+        from kgl_gene_tpu_torch.analysis import lib_seqmutation
+
+        self._mod, self._orig = lib_seqmutation, lib_seqmutation.pairwise_distance_matrix
+        self.calls = 0
+
+        def banded(seqs, lens, band_k=None, device=None):
+            self.calls += 1
+            return self._orig(seqs, lens, band_k=127 if band_k is None else band_k,
+                              device=device)
+
+        lib_seqmutation.pairwise_distance_matrix = banded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.pairwise_distance_matrix = self._orig
+
+
+def same_package_file(name, got_path, want_path):
+    """One output file of the card run against the CPU run's: text byte for
+    byte, the F columns of inbreeding.csv within ESTIMATOR_ATOL. Returns
+    the largest F difference."""
+    with open(got_path) as f:
+        got = f.read().splitlines()
+    with open(want_path) as f:
+        want = f.read().splitlines()
+    if name != "inbreeding.csv":
+        if got != want:
+            raise AssertionError(f"phase 3h: {name} differs between the card and the CPU run")
+        return 0.0
+    if len(got) != len(want) or got[:1] != want[:1]:
+        raise AssertionError("phase 3h: inbreeding.csv differs in shape or header")
+    header, worst = got[0].split(","), 0.0
+    for g_line, w_line in zip(got[1:], want[1:]):
+        for col, g, w in zip(header, g_line.split(","), w_line.split(",")):
+            if col in ESTIMATOR_ATOL:
+                diff = abs(float(g) - float(w))
+                worst = max(worst, diff)
+                if diff > ESTIMATOR_ATOL[col]:
+                    raise AssertionError(f"phase 3h: {col} {g} vs {w} beyond "
+                                         f"{ESTIMATOR_ATOL[col]}")
+            elif g != w:
+                raise AssertionError(f"phase 3h: inbreeding.csv {col} {g} vs {w}")
+    return worst
+
+
+def run_package(xml, work_dir, device):
+    """run_application(GeneExecEnv, ...) on the XML; (return code, the
+    executor, host seconds by analysis, wall seconds, requests)."""
+    from kgl_gene_tpu_torch.app.exec_env import GeneExecEnv, run_application
+
+    apps = []
+
+    class Probe(GeneExecEnv):
+        def __init__(self):
+            super().__init__()
+            apps.append(self)
+
+    t0 = time.perf_counter()
+    with AnalysisClock() as clock, NoNetwork() as net:
+        rc = run_application(Probe, ["--optionFile", xml, "--workDirectory", work_dir,
+                                     "--device", device])
+    return rc, apps[0].executor, clock.seconds, time.perf_counter() - t0, net.requests
+
+
+def phase_package(dev, workdir):
+    """Phase 3h: the application shell as a user runs it,
+    `python -m kgl_gene_tpu_torch.app.exec_env --optionFile runtime.xml
+    --device cuda`, through run_application, on phase 3c's synthetic
+    FASTA/GFF3/VCF (256 samples, four genes of 3,000 coding bases, 3,000
+    records with indels) and write_package_inputs' resources: one XML with
+    the nine analyses, counts from 0. It fails unless the run returns 0,
+    no analysis is dropped, kernels B1 and B2 launch, no request leaves the
+    machine, and every file of the port's CPU run of the same XML (its
+    PfSEQUENCE naming PACKAGE_CPU_GENES, its tree through BandedCpuTree)
+    equals the card's (inbreeding.csv's F within ESTIMATOR_ATOL). Returns
+    the {"package": ...} record."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.io.synthetic import generate_population_files
+
+    t0 = time.perf_counter()
+    paths = generate_population_files(workdir, **PRODUCT)
+    inputs = write_package_inputs(workdir, paths)
+    card_dir, cpu_dir = os.path.join(workdir, "work_card"), os.path.join(workdir, "work_cpu")
+    xml = write_package_xml(os.path.join(workdir, "runtime.xml"), inputs, card_dir)
+    cpu_xml = write_package_xml(os.path.join(workdir, "runtime_cpu.xml"), inputs, cpu_dir,
+                                gene_list=PACKAGE_CPU_GENES)
+    inputs_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rc, executor, seconds, wall_s, requests = run_package(xml, card_dir, "cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"  package run on the card: rc {rc}, {wall_s:.2f} s, launches {launches}, "
+        f"dropped {executor.dropped if executor else None}, requests {requests}")
+    if rc != 0 or executor is None:
+        raise AssertionError(f"phase 3h: run_application returned {rc}")
+    if executor.dropped:
+        raise AssertionError(f"phase 3h: analyses dropped: {executor.dropped}")
+    if executor.device != dev:
+        raise AssertionError(f"phase 3h: the package ran on {executor.device}")
+    for name in ("myers", "translate"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"phase 3h: kernel {name} never launched")
+    if requests:
+        raise AssertionError(f"phase 3h: {requests} requests tried to leave the machine")
+    if set(seconds) != set(PACKAGE_ANALYSES):
+        raise AssertionError(f"phase 3h: analyses that ran: {sorted(seconds)}")
+    card_files = sorted(os.listdir(card_dir))
+
+    with BandedCpuTree() as tree:
+        rc_cpu, cpu_exec, cpu_seconds, cpu_wall_s, cpu_requests = run_package(
+            cpu_xml, cpu_dir, "cpu")
+    if rc_cpu != 0 or cpu_exec.dropped or cpu_requests:
+        raise AssertionError(f"phase 3h: the CPU run: rc {rc_cpu}, dropped {cpu_exec.dropped}, "
+                             f"requests {cpu_requests}")
+    cpu_files = sorted(os.listdir(cpu_dir))
+    if not set(cpu_files) <= set(card_files):
+        raise AssertionError(f"phase 3h: files only the CPU run wrote: "
+                             f"{sorted(set(cpu_files) - set(card_files))}")
+    worst_f = max(same_package_file(name, os.path.join(card_dir, name),
+                                    os.path.join(cpu_dir, name)) for name in cpu_files)
+    with open(os.path.join(card_dir, "gene_literature.csv")) as f:
+        rows = f.read().splitlines()[1:]
+    if not rows or any(not row.split(",", 3)[3] for row in rows):
+        raise AssertionError("phase 3h: a publication was not served from the PubMed cache")
+    expected = {"interval_density.csv", "info_field_stats.csv", "inbreeding.csv",
+                "pfemp_zygosity.csv", "pfemp_fws.csv", "pfemp_distance_compare.csv",
+                "gene_mutation.csv", "gene_allele.csv", "allele_citations.csv",
+                "gene_literature.csv", "literature_authors.csv"}
+    expected |= {f"sequence_{g}_{g}.1.{ext}" for g in inputs["genes"] for ext in ("csv", "nwk")}
+    expected |= {f"pfemp_{fam.upper()}_{g}.1.csv" for g, fam in PACKAGE_FAMILIES.items()}
+    if not expected <= set(card_files):
+        raise AssertionError(f"phase 3h: missing outputs {sorted(expected - set(card_files))}")
+    only_card = sorted(set(card_files) - set(cpu_files))
+    log(f"  CPU run (PfSEQUENCE GeneList {PACKAGE_CPU_GENES}, its tree through band 127 on the "
+        f"CPU, {tree.calls} matrices): {cpu_wall_s:.2f} s; {len(cpu_files)} of {len(card_files)} "
+        f"files compared, every one equal (largest F difference {worst_f:.3g}); card only: "
+        f"{only_card}")
+    return {
+        "xml_analyses": len(PACKAGE_ANALYSES), "packages": len(executor.runtime.active_packages),
+        "device": str(executor.device), "wall_s": wall_s,
+        "analysis_s": {k: round(v, 4) for k, v in sorted(seconds.items())},
+        "files": len(card_files), "files_compared": len(cpu_files), "launches": launches,
+        "cpu_genes": PACKAGE_CPU_GENES, "cpu_wall_s": cpu_wall_s,
+        "cpu_analysis_s": {k: round(v, 4) for k, v in sorted(cpu_seconds.items())},
+        "largest_f_difference": worst_f, "inputs_s": inputs_s, "requests": requests,
+    }
+
+
 def main() -> int:
     try:
         import torch
@@ -3346,6 +3927,14 @@ def main() -> int:
         checkpoint_local["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3g: {checkpoint_local['phase_s']:.1f} s")
 
+        phase = "main path: the application shell, nine analyses"
+        log(f"phase 3h: {phase}")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            package = phase_package(dev, workdir)
+        package["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3h: {package['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -3372,7 +3961,8 @@ def main() -> int:
         issue_ms = r.get("issue_bound_ms",
                          r["int_ops"] / int_rate * 1e3 if "int_ops" in r else None)
         least = min(r["ms"], r.get("device_ms", r["ms"]))
-        if max(r["bound_ms"], issue_ms or 0.0, r.get("latency_bound_ms", 0.0)) > least:
+        if (max(r["bound_ms"], issue_ms or 0.0, r.get("latency_bound_ms", 0.0)) > least
+                or r.get("cold_latency_bound_ms", 0.0) > r.get("cold_ms", math.inf)):
             print(f"chip_smoke: a bound of {r['name']} reads above its time", file=sys.stderr)
             return 1
         report.append({
@@ -3395,6 +3985,7 @@ def main() -> int:
     print(json.dumps({"phylo": phylo}))
     print(json.dumps({"ontology": ontology}))
     print(json.dumps({"checkpoint_local": checkpoint_local}))
+    print(json.dumps({"package": package}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -23,8 +23,12 @@ and the database on the host; ops/similarity.py: the all-pairs MICA and
 Lin matrices on the device), the checkpointed VCF ingest (io/checkpoint.py
 and the cursor of io/vcf.py), the typed distance metrics (classify/
 distance.py) with the local (infix) metric on the device (ops/local.py),
-and the host remainder of the genomics core (analysis/legacy.py,
-sequence/complexity.py, variant/filter.py, variant/vep.py, utils/), with
+the host remainder of the genomics core (analysis/legacy.py,
+sequence/complexity.py, variant/filter.py, variant/vep.py, utils/), and
+the application shell (app/: python -m kgl_gene_tpu_torch.app.exec_env
+runs the packages of a runtime XML, its --device going to every analysis)
+with its resource parsers (io/, literature/) and the nine registered
+analyses (analysis/*_analysis.py, registered by analysis/registered.py), with
 hand-written CUDA kernels for codon translation, exact Levenshtein by
 full-width bit vectors and the local distance by the same body, banded
 Myers, the banded row DP with its traceback codes, the walk over those

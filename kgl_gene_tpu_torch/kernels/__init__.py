@@ -71,6 +71,9 @@ _SIGNATURES = {
     # codes, row_stride, pair_stride, M, W, la, lb, ops, counts, B, band_k,
     # max_steps, stream
     "kgt_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
+    # the same arguments: the walk's first design, (B, max_steps) tapes
+    # (scripts/torch_kernel_bodies.py)
+    "kgt_walk_pair_major": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # ptr_i, ids_i, ic_i, ni, ptr_j, ids_j, ic_j, nj, tile, entries, out,
     # symmetric, stream: compact rows
     "kgt_mica": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P),

@@ -8,7 +8,8 @@ Counterpart of kgl_gene_tpu/ops/traceback.py. Three stages:
   2. tb_walk follows every pair's path from (la, lb) back to (0, 0) and
      emits (op, count) run tapes; a diagonal match run is one tape entry.
      On the card it is the kernel of csrc/walk.cu, one thread per pair,
-     in place of the JAX package's lax.scan; tb_walk_plain is its plain
+     step-major tapes, a warp leaving its loop once its 32 pairs have
+     ended, in place of the JAX package's lax.scan; tb_walk_plain is its plain
      PyTorch version, every pair at once, one step per loop turn. Only
      the (B, steps) tapes cross to the host.
   3. The host turns each tape into a CIGAR string ("12M1X3M2D..."), the
@@ -83,8 +84,9 @@ def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
     uint8 and int32 run tapes in reverse path order (end to start),
     OP_END with count 0 after the end. A match run moves code - 2 rows and
     columns in one step, so the steps scale with the edits, not the
-    length. On a CUDA tensor this launches the walk kernel (csrc/walk.cu)
-    or raises; on a CPU tensor it runs tb_walk_plain."""
+    length. Both are transposed views of (max_steps, B) tensors. On a CUDA
+    tensor this launches the walk kernel (csrc/walk.cu) or raises; on a
+    CPU tensor it runs tb_walk_plain."""
     if codes.device.type == "cpu":
         return tb_walk_plain(codes, la, lb, band_k=band_k, max_steps=max_steps)
     M, B, W = codes.shape
@@ -96,14 +98,16 @@ def tb_walk(codes, la, lb, *, band_k: int, max_steps: int):
                          f"got {tuple(codes.shape)}, strides {codes.stride()}")
     if la.shape != (B,) or lb.shape != (B,):
         raise ValueError(f"la, lb must be ({B},), got {tuple(la.shape)}, {tuple(lb.shape)}")
-    ops = torch.empty((B, max_steps), dtype=torch.uint8, device=codes.device)
-    counts = torch.empty((B, max_steps), dtype=torch.int32, device=codes.device)
+    # Step-major tapes, as tb_walk_plain builds them: a warp's store at a
+    # step covers 32 consecutive entries.
+    ops = torch.empty((max_steps, B), dtype=torch.uint8, device=codes.device)
+    counts = torch.empty((max_steps, B), dtype=torch.int32, device=codes.device)
     kernels.launch(
         "walk", "kgt_walk", codes.device,
         codes.data_ptr(), codes.stride(0), codes.stride(1), M, W,
         la.data_ptr(), lb.data_ptr(), ops.data_ptr(), counts.data_ptr(), B, band_k, max_steps,
     )
-    return ops, counts
+    return ops.T, counts.T
 
 
 def banded_traceback_ops(seq_a, len_a, seq_b, len_b, band_k: int = 127, device=None):

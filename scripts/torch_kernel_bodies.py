@@ -8,7 +8,7 @@ Then, on the card:
 
   1. holds each body of B1 (group: a pair over NB lanes of a warp; thread:
      a pair a thread), of B4 and of B5 (warp: a pair a warp; block: a pair
-     a block), and the walk kernel, against the plain PyTorch versions at
+     a block), and both designs of the walk kernel, against the plain PyTorch versions at
      S = 3,000 (exact), and both designs of the MICA kernel (csrc/mica.cu:
      kgt_mica on compact rows, and kgt_mica_tiles, the first design on
      padded lists, reachable only from here: mica_tiles, and
@@ -19,8 +19,11 @@ Then, on the card:
      CUDA graph replay), and prints which body the launcher's rule takes
      at each: the rule's thresholds (group_max_pairs in csrc/myers.cu)
      were set from this table;
-  3. times both bodies of B4 at bands 31 to 255 and the walk kernel at
-     the transcript family's shape (256 pairs of 3,000 bases, band 127);
+  3. times both bodies of B4 at bands 31 to 255, and the walk kernel
+     (csrc/walk.cu: kgt_walk, step-major tapes and an early exit) beside
+     its first design (kgt_walk_pair_major, reachable only from here:
+     walk_pair_major; chip_smoke.py's phase 4 times it from here) at
+     phase 4's shape, warm and right after a fresh B4;
   4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
      bases at bands 31 to 255.
 
@@ -73,6 +76,19 @@ def mica_tiles(ids, ic):
     return out
 
 
+def walk_pair_major(codes, la, lb, *, band_k, max_steps):
+    """The walk's first design (kgt_walk_pair_major: every pair all
+    max_steps trips, (B, max_steps) tapes) on tb_walk's arguments: the
+    same (ops, counts), counted as "walk_pair_major"."""
+    M, B, W = codes.shape
+    ops = torch.empty((B, max_steps), dtype=torch.uint8, device=codes.device)
+    counts = torch.empty((B, max_steps), dtype=torch.int32, device=codes.device)
+    kernels.launch("walk_pair_major", "kgt_walk_pair_major", codes.device, codes.data_ptr(),
+                   codes.stride(0), codes.stride(1), M, W, la.data_ptr(), lb.data_ptr(),
+                   ops.data_ptr(), counts.data_ptr(), B, band_k, max_steps)
+    return ops, counts
+
+
 def mica_first_design(ids, ic):
     """The first design's wrapper: id_order on the card, then mica_tiles."""
     return mica_tiles(*id_order(ids, ic))
@@ -121,10 +137,11 @@ def check(dev):
                 exact(f"B5 {body} body k={k} (B={n}, S={S}, ragged)",
                       banded_distance(*args, band_k=k, _body=body), want)
     codes = banded_choices(a, la, b, lb, band_k=127)
-    got = tb_walk(codes, la, lb, band_k=127, max_steps=300)
     want = tb_walk_plain(codes, la, lb, band_k=127, max_steps=300)
-    exact("walk ops (B=64, k=127, 300 steps)", got[0], want[0])
-    exact("walk counts", got[1], want[1])
+    for name, walk in (("kgt_walk", tb_walk), ("kgt_walk_pair_major", walk_pair_major)):
+        got = walk(codes, la, lb, band_k=127, max_steps=300)
+        exact(f"walk ops, {name} (B=64, k=127, 300 steps)", got[0], want[0])
+        exact(f"walk counts, {name}", got[1], want[1])
     lists = np.full((300, 192), -1, np.int32)
     for r in range(300):
         L = int(rng.integers(0, 193))
@@ -173,11 +190,36 @@ def time_choices_and_walk(dev):
             windows=3) for body in ("warp", "block")}
         print(f"B4 device ms, B=256 S={S} k={k}: warp {ms['warp']:.6f} block {ms['block']:.6f} "
               f"| rule takes {banded_choices_kernel_body(k)}", flush=True)
-    k = 127
-    codes = banded_choices(ref_t, lb_t, a_t, la_t, band_k=k)
-    steps = 2 * k + 1 + (S + 252) // 253 + 8
-    ms = time_device([lambda: tb_walk(codes, lb_t, la_t, band_k=k, max_steps=steps)], 5)
-    print(f"walk device ms, B=256 k={k} {steps} steps: {ms:.6f}")
+    time_walk(dev)
+
+
+def time_walk(dev):
+    """The walk kernel and its first design at chip_smoke.py phase 4's
+    shape (phase 3b's 256 mutants against their reference, band 127, 275
+    steps), in turns: on the device with the codes in the L2 (a CUDA
+    graph of back-to-back walks), and each walk right after a fresh B4
+    over the same inputs, as reference_cigars runs it."""
+    from chip_smoke import WALK_COLD_REPS, family_walk_case, time_after, time_device
+
+    choices, rl, plens, k, steps = family_walk_case(dev)
+    codes = choices()
+    walks = {"kgt_walk": tb_walk, "kgt_walk_pair_major": walk_pair_major}
+    want = tb_walk_plain(codes, rl, plens, band_k=k, max_steps=steps)
+    for name, walk in walks.items():
+        got = walk(codes, rl, plens, band_k=k, max_steps=steps)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{name} differs from tb_walk_plain at phase 4's shape")
+    calls = [lambda walk=walk: walk(codes, rl, plens, band_k=k, max_steps=steps)
+             for walk in walks.values()]
+    warm = {name: [] for name in walks}
+    for _ in range(2):
+        for name, call in zip(walks, calls):
+            warm[name].append(time_device([call], 10, windows=3))
+    cold = time_after(choices, [lambda c, walk=walk: walk(c, rl, plens, band_k=k, max_steps=steps)
+                                for walk in walks.values()], WALK_COLD_REPS)
+    for (name, ms), cold_ms in zip(warm.items(), cold):
+        print(f"walk {name}, B={len(rl)} k={k} {steps} steps: device ms warm "
+              f"{' / '.join(f'{x:.6f}' for x in ms)}, right after B4 {cold_ms:.6f}", flush=True)
 
 
 def time_banded(dev):
@@ -256,7 +298,8 @@ def dump_sass():
     for chunk in text.split("\t\tFunction : ")[1:]:
         name = chunk.split("\n", 1)[0]
         for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
-                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "mica_kernelILi16E",
+                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "walk_pair_major_kernel",
+                    "mica_kernelILi16E",
                     "mica_rows_kernel", "bitvector_kernelILi1ELb0E", "bitvector_kernelILi1ELb1E",
                     "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E"):
             if key in name:

@@ -76,6 +76,11 @@ def test_port_runs_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['kgl_gene_tpu'] = None\n"
+        "import kgl_gene_tpu_torch.ops.traceback\n"
+        "from kgl_gene_tpu_torch.app import exec_env\n"
+        "import kgl_gene_tpu_torch.analysis.registered\n"
+        "import kgl_gene_tpu_torch.io.rest_api, kgl_gene_tpu_torch.io.json_parser\n"
+        "import kgl_gene_tpu_torch.io.data_source, kgl_gene_tpu_torch.literature.pubmed\n"
         "from kgl_gene_tpu_torch.entry import entry\n"
         "from kgl_gene_tpu_torch.analysis import lib_seqmutation as fam\n"
         "from kgl_gene_tpu_torch.genome.features import CodingSequenceValidity as V\n"
@@ -155,6 +160,23 @@ def test_port_runs_with_jax_blocked():
         "ploidy = PloidyAnalysis()\n"
         "ploidy.add_population(VariantMajorView(pop))\n"
         "assert len(ploidy.genome_data) == pop.genome_count()\n"
+        "xml = os.path.join(d, 'runtime.xml')\n"
+        "open(xml, 'w').write(\n"
+        "    '<runTime><executeList><active>p</active></executeList><packageList><package>'\n"
+        "    '<packageIdent>p</packageIdent><resourceList><resourceIdent>g</resourceIdent>'\n"
+        "    '</resourceList><iterationList><iteration><fileIdent>v</fileIdent></iteration>'\n"
+        "    '</iterationList><analysisList><analysisIdent>NULL</analysisIdent>'\n"
+        "    '<analysisIdent>INTERVAL</analysisIdent></analysisList></package></packageList>'\n"
+        "    '<dataFileList><dataFile><fileIdent>v</fileIdent><fileName>' + paths.vcf +\n"
+        "    '</fileName><parser>PF_DIPLOID</parser></dataFile></dataFileList><resourceList>'\n"
+        "    '<resource><resourceType>GenomeDatabase</resourceType><resourceIdent>g'\n"
+        "    '</resourceIdent><fastaFile>' + paths.fasta + '</fastaFile><gffFile>' +\n"
+        "    paths.gff3 + '</gffFile></resource></resourceList></runTime>')\n"
+        "work = os.path.join(d, 'work')\n"
+        "assert exec_env.run_application(exec_env.GeneExecEnv, ['--optionFile', xml,\n"
+        "    '--workDirectory', work, '--device', 'cpu']) == 0\n"
+        "assert os.listdir(work) == ['interval_density.csv']\n"
+        "assert len(open(os.path.join(work, 'interval_density.csv')).readlines()) == 1 + 12\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"

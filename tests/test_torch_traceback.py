@@ -198,46 +198,70 @@ def test_compare_sequences_and_cigar_equal_jax(seed):
             == j_legacy.edit_items_to_cigar(want, len(ref)))
 
 
-# --- The walk kernel (csrc/walk.cu), pair by pair ---------------------------
+# --- The walk kernel (csrc/walk.cu), lane by lane --------------------------
 #
-# A Python mirror of walk_kernel: one sequential loop per pair over the
-# codes' bytes, addressed by the strides the wrapper hands the kernel.
-# Held against tb_walk_plain (which tb_walk runs on a CPU tensor and the
-# tests above hold against the JAX package's lax.scan through the tapes).
+# A Python mirror of walk_kernel: warps of 32 pairs (the block), each lane a
+# pair, one step of every lane at a time over the codes' bytes, addressed by
+# the strides the wrapper hands the kernel, each lane's load before the
+# vote (inside the codes for an ended lane); the warp leaves its loop when
+# every lane is at (0, 0) (__all_sync; lanes past B count as ended), stores
+# go to step-major (max_steps, B) tapes, and the steps the warp did not run
+# get the OP_END / 0 tail. Held against tb_walk_plain (which tb_walk runs on
+# a CPU tensor and the tests above hold against the JAX package's lax.scan
+# through the tapes). Change it with the kernel.
 
-def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps, reads=None):
-    """(ops, counts); each byte read is appended to `reads`, when given, as
-    (pair, step, offset from the codes' first byte)."""
+def walk_mirror(codes, la_arr, lb_arr, band_k, max_steps, reads=None, trips=None):
+    """(ops, counts), each (B, max_steps): the transposed views of the
+    kernel's step-major tapes. Each byte read is appended to `reads`, when
+    given, as (pair, step, offset from the codes' first byte); each warp's
+    loop trips (the steps before its vote ends it) to `trips`."""
     M, B, W = codes.shape
     flat = np.lib.stride_tricks.as_strided(codes, (_span(codes),), (1,))
     row_stride, pair_stride, _ = codes.strides
-    ops = np.full((B, max_steps), 99, np.uint8)
-    counts = np.full((B, max_steps), -1, np.int32)
-    for p in range(B):
-        i, j = max(int(la_arr[p]), 0), max(int(lb_arr[p]), 0)
-        for s in range(max_steps):
-            if i <= 0 and j <= 0:
-                ops[p, s], counts[p, s] = 0, 0
-                continue
-            c = min(max(j - i + band_k, 0), W - 1)
-            row = min(max(i - 1, 0), M - 1)
-            at = row * row_stride + p * pair_stride + c
-            code = int(flat[at])
-            if reads is not None:
-                reads.append((p, s, at))
-            both = i > 0 and j > 0
-            is_match = both and code >= 3
-            take_diag = both and code >= 2
-            take_up = (both and code == 1) or (i > 0 and j <= 0)
-            take_left = not take_diag and not take_up
-            count = max(code - 2, 1) if is_match else 1
-            ops[p, s] = (1 if is_match else 2) if take_diag else 3 if take_up else 4
-            counts[p, s] = count
-            if not take_left:
-                i -= count
-            if not take_up:
-                j -= count
-    return ops, counts
+    ops = np.full((max_steps, B), 99, np.uint8)
+    counts = np.full((max_steps, B), -1, np.int32)
+    for warp in range(-(-B // 32)):
+        lanes = range(warp * 32, warp * 32 + 32)
+        i = {p: max(int(la_arr[p]), 0) if p < B else 0 for p in lanes}
+        j = {p: max(int(lb_arr[p]), 0) if p < B else 0 for p in lanes}
+        s = 0
+        while s < max_steps:
+            # Every lane loads its clamped cell before the vote, an ended
+            # lane and a lane past B (pair 0's codes) too.
+            code, at = {}, {}
+            for p in lanes:
+                c = min(max(j[p] - i[p] + band_k, 0), W - 1)
+                row = min(max(i[p] - 1, 0), M - 1)
+                at[p] = row * row_stride + (p if p < B else 0) * pair_stride + c
+                code[p] = int(flat[at[p]])
+            done = {p: i[p] <= 0 and j[p] <= 0 for p in lanes}
+            if all(done.values()):  # __all_sync
+                break
+            for p in lanes:
+                op, count = 0, 0
+                if not done[p]:
+                    if reads is not None:
+                        reads.append((p, s, at[p]))
+                    code_p = code[p]
+                    both = i[p] > 0 and j[p] > 0
+                    is_match = both and code_p >= 3
+                    take_diag = both and code_p >= 2
+                    take_up = (both and code_p == 1) or (i[p] > 0 and j[p] <= 0)
+                    take_left = not take_diag and not take_up
+                    count = max(code_p - 2, 1) if is_match else 1
+                    op = (1 if is_match else 2) if take_diag else 3 if take_up else 4
+                    if not take_left:
+                        i[p] -= count
+                    if not take_up:
+                        j[p] -= count
+                if p < B:
+                    ops[s, p], counts[s, p] = op, count
+            s += 1
+        if trips is not None:
+            trips.append(s)
+        real = [p for p in lanes if p < B]
+        ops[s:, real], counts[s:, real] = 0, 0  # the tail after the loop
+    return ops.T, counts.T
 
 
 def _span(x):
@@ -308,6 +332,45 @@ def test_walk_latency_bound_counts_each_warps_new_lines(band_k, pair_major):
     np.testing.assert_array_equal(live, want_live)
     np.testing.assert_array_equal(new, want_new)
     assert 0 < new.sum() < live.sum()
+    # The cold bound's split: new lines on a row below the last 60 rows.
+    row_stride = codes.stride(0)
+    want_below = np.zeros(B, np.int64)
+    for p, s, at in reads:
+        row = (at - p * codes.stride(1)) // row_stride
+        want_below[p] += (first[(p // 32, (codes.data_ptr() + at) // 128)] == s
+                          and row < codes.shape[0] - 60)
+    got = chip_smoke.walk_new_lines(codes, la, lb, band_k, torch.as_tensor(ops),
+                                    torch.as_tensor(counts), cached_rows=60)
+    np.testing.assert_array_equal(got[0], want_new)
+    np.testing.assert_array_equal(got[2], want_below)
+    assert 0 < want_below.sum() < want_new.sum()
+
+
+@pytest.mark.parametrize("B,max_steps", [(40, 200), (70, 120), (33, 9)])
+def test_walk_mirror_warps_whose_pairs_end_apart(B, max_steps):
+    """The kernel's early exit: within a warp the pairs end at different
+    steps (lengths 0 to 150, some pairs outside the band), the warp runs
+    its longest pair's steps and no more, its ended lanes store OP_END / 0
+    in the loop and the tail does after it; the last warp is partial
+    (lanes past B take part in the vote only). Tapes equal tb_walk_plain's,
+    byte for byte."""
+    band_k = 31
+    codes, la, lb = _walk_inputs(B, band_k, n=B)
+    la[5:9] = torch.tensor([0, 1, 2, 3], dtype=torch.int32)
+    trips = []
+    m_ops, m_counts = walk_mirror(codes.numpy(), la.numpy(), lb.numpy(), band_k, max_steps,
+                                  trips=trips)
+    p_ops, p_counts = tb_walk_plain(codes, la, lb, band_k=band_k, max_steps=max_steps)
+    np.testing.assert_array_equal(m_ops, p_ops.numpy())
+    np.testing.assert_array_equal(m_counts, p_counts.numpy())
+    live = (p_ops.numpy() != 0).sum(1)
+    assert len(trips) == -(-B // 32)
+    for w, t in enumerate(trips):
+        lanes = live[w * 32:(w + 1) * 32]
+        assert t == lanes.max()  # the warp stops after its longest pair
+        assert len(lanes) == 1 or len(set(lanes.tolist())) > 1  # pairs end apart
+    # Without a cut tape some warp leaves its loop before max_steps.
+    assert min(trips) < max_steps or max_steps < 10
 
 
 def test_walk_mirror_saturated_runs_and_arbitrary_codes():
