@@ -6,7 +6,7 @@
 Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
 host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
 kernel against its plain PyTorch version on the card (exact equality),
-and drives eight paths, each with the launch counts set to 0 just before
+and drives nine paths, each with the launch counts set to 0 just before
 and read just after where it launches a kernel:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
@@ -126,7 +126,29 @@ and read just after where it launches a kernel:
      (PACKAGE_CPU_GENES) and whose all-pairs tree takes the card's exact
      route at band 127 (BandedCpuTree), equals the card run's file
      (inbreeding.csv's F within ESTIMATOR_ATOL). It prints the seconds of
-     each analysis on both runs, the files and the launches.
+     each analysis on both runs, the files and the launches;
+  9. the multi-device forms (phase 3i): kernel wavefront_chunk
+     (csrc/sharded_wavefront.cu, one chunk of the sharded long-pair
+     wavefront a launch) against chunk_plain on ragged pairs to 4,000
+     bases, halos 32 and 128, worlds 1 and 2 simulated in this process;
+     then parallel.dist.run_ranks at world 1 on NCCL and at world 2 on
+     gloo with both ranks on cuda:0 (NCCL refuses two ranks on one card),
+     counts from 0 in each rank: make_multichip_step at B = 4,096, K = 48,
+     S = 3,000 and make_multichip_indel_step at B = 256, bands 63 and 0
+     (B1, B3), each gathered and equal to the one-card step (pop_ac to
+     numpy's column sums), and sharded_levenshtein on a 32,768-base pair
+     equal to B3 (launched after the counts are read); at
+     world 2 also sharded_pairwise_distances over phase 3b's 256 mutants
+     (32,640 pairs, band 127) equal to phase 3b's matrix, sharded allele
+     counts, het/hom and the four estimators on a 1,000 x 10,000 window
+     (within ESTIMATOR_ATOL of the one-device forms), streamed inbreeding
+     over a seeded 1,000 x 2^18 CSR bit for bit equal to the one-rank run,
+     and a 49,152-base pair (past B3's MAX_KERNEL_LEN); both long pairs
+     equal to the numpy DP. It fails unless every rank ran on cuda over
+     its backend and launched B1, B2, B3 and the chunk kernel, within its
+     deadline. It prints each rank's device, backend, copies through the
+     host and launches, the step over the mesh beside the one-card step in
+     turns, the 32,768-base pair beside B3, and the phase's seconds.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -174,16 +196,18 @@ Output: progress lines, then one JSON line {"device_functions": [...]}
 sizes, checks and the MICA kernel's times and bounds), one
 {"checkpoint_local": {...}} (phase 3g's seconds and checks), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
-one {"kernels":
-[...]} of ten rows (`local` at B = 256 against the shared reference and
+one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
+{"kernels": [...]} of eleven rows (`local` at B = 256 against the shared
+reference and
 `local_pool` over the 32,640 pairs are the local kernel's; the rows of
 B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
 issue floor, and it carries design_issue_ms; the walk's carries
 cold_ms, latency_bound_ms, cold_latency_bound_ms and its first design's
-times), the card's
-name and power limit from nvidia-smi, and as the last line
+times; wavefront_chunk's carries dispatch_bound_ms beside issue_bound_ms
+and holds the middle chunk of the 32,768-base pair from its DP state), the
+card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
 """
@@ -2523,7 +2547,8 @@ def phase_scale(dev, workdir):
     packed = torch.randint(0, 256, calls[0], dtype=torch.uint8, device=dev)
     p_blk = torch.as_tensor(np.resize(af.astype(np.float32), 4 * calls[0][0]), device=dev)
     acc = torch.zeros((G, 5), dtype=torch.float32, device=dev)
-    ms = time_cuda(functools.partial(moments, packed, p_blk, acc), 3, windows=3)
+    ms = time_cuda(functools.partial(moments, packed, p_blk, acc, mesh.slab_rows_for(G)), 3,
+                   windows=3)
     nbytes = packed.numel() + p_blk.numel() * 4 + acc.numel() * 4 * 2
     table.append({"name": "_inbreed_moments", "source": "kgl_gene_tpu_torch/parallel/mesh.py",
                   "replaces": "kgl_gene_tpu/parallel/mesh.py:148", "launches": len(calls),
@@ -3812,6 +3837,447 @@ def phase_package(dev, workdir):
     }
 
 
+# Phase 3i: the multi-device forms (parallel/dist.py, parallel/mesh.py,
+# make_multichip_step / make_multichip_indel_step, ops/sharded_wavefront.py).
+MULTI_STEP_B = 4_096
+MULTI_STEP_K = 48
+MULTI_INDEL = dict(B=256, K=12, A=4, band_k=63)
+MULTI_WINDOW = (1_000, 10_000)       # genomes x loci of the sharded estimators
+MULTI_STREAMED = (1_000, 1 << 18)    # genomes x variants of the streamed CSR
+MULTI_STREAMED_BLOCK = 1 << 16       # variants a streamed block: four blocks
+MULTI_LONG = (32_768, 49_152)        # the long pairs; 49,152 > B3's MAX_KERNEL_LEN
+MULTI_LONG_EDITS = (300, 40)         # substitutions, deletions of the long pairs
+MULTI_HALO = 128
+MULTI_TIMEOUT_S = 600.0              # each spawn's deadline
+MULTI_STEP_WINDOWS = 5               # timed windows of each step, in turns
+MULTI_STEP_ITERS = 3                 # calls a window
+# (lengths of a, lengths of b) of the chunk kernel's cases against its plain
+# version: ragged pairs from empty to a few thousand bases.
+CHUNK_CASES = (((257, 100, 31, 1, 0, 3_000, 2_500), (190, 211, 257, 0, 5, 2_990, 2_600)),
+               ((4_000,), (3_993,)))
+
+
+def long_pair(rng, n, n_sub, n_del):
+    """A pair of n bases: b is a with n_sub substitutions and n_del
+    deletions, both padded to width n."""
+    a = rng.integers(0, 4, n)
+    b = a.copy()
+    idx = rng.choice(n, n_sub, replace=False)
+    b[idx] = (b[idx] + 1 + rng.integers(0, 3, n_sub)) % 4
+    b = np.delete(b, rng.choice(n, n_del, replace=False))
+    seq = np.zeros((2, n), np.int32)
+    seq[0], seq[1, : len(b)] = a, b
+    return seq[:1], np.array([n], np.int32), seq[1:], np.array([len(b)], np.int32)
+
+
+def simulate_ranks(seq_a, la, seq_b, lb, world, halo, dev, step):
+    """sharded_levenshtein's ranks in this process, in lock step, the ring
+    exchange by hand: (the summed result, the last rank lanes)."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+
+    states = [sw.rank_lanes(seq_a, la, seq_b, lb, r, world, halo, dev) for r in range(world)]
+    for c in range(states[0].n_chunks):
+        states = [sw.run_chunk(s, c, step) for s in states]
+        if world > 1:
+            sends = [sw.halo_lanes(s) for s in states]
+            for r, s in enumerate(states):
+                sw.refresh_halo(s, sends[(r - 1) % world])
+    torch.cuda.synchronize()
+    return sum(s.result for s in states), states
+
+
+def chunk_kernel_cases(dev, errs):
+    """Kernel wavefront_chunk against chunk_plain (exact) on ragged pairs
+    up to a few thousand bases, halos 32 and 128, worlds 1 and 2 (the
+    ranks simulated in this process): the distances, every rank's last
+    lanes, and the numpy DP."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+    from kgl_gene_tpu_torch.ops.edit_distance import levenshtein_numpy
+
+    rng = np.random.default_rng(SEED + 14)
+    for a_lens, b_lens in CHUNK_CASES:
+        a_rows = [rng.integers(0, 4, n) for n in a_lens]
+        b_rows = [rng.integers(0, 4, n) for n in b_lens]
+        sa = np.zeros((len(a_rows), max(a_lens)), np.int32)
+        sb = np.zeros((len(b_rows), max(b_lens)), np.int32)
+        for i, (a, b) in enumerate(zip(a_rows, b_rows)):
+            sa[i, : len(a)], sb[i, : len(b)] = a, b
+        la, lb = np.array(a_lens, np.int32), np.array(b_lens, np.int32)
+        want = torch.as_tensor([levenshtein_numpy(a, b) for a, b in zip(a_rows, b_rows)])
+        for world in (1, 2):
+            for halo in (32, 128):
+                tag = f"lengths to {max(a_lens)}, world {world}, halo {halo}"
+                got, k_states = simulate_ranks(sa, la, sb, lb, world, halo, dev, sw.chunk)
+                plain, p_states = simulate_ranks(sa, la, sb, lb, world, halo, dev,
+                                                 sw.chunk_plain)
+                err = exact(f"wavefront_chunk vs chunk_plain, distances ({tag})", got, plain)
+                for r, (ks, ps) in enumerate(zip(k_states, p_states)):
+                    err = max(err, exact(f"  rank {r}'s owned lanes", ks.p[:, ks.H:],
+                                         ps.p[:, ps.H:]),
+                              exact(f"  rank {r}'s lanes d - 2", ks.pp[:, ks.H:],
+                                    ps.pp[:, ps.H:]))
+                exact(f"  the same vs the numpy DP ({tag})", got, want)
+                errs["wavefront_chunk"] = max(errs["wavefront_chunk"], err)
+
+
+class SeededCSR:
+    """A VariantMajorCSR face over a seeded dense zygosity matrix, made a
+    block at a time from (seed, block start): every rank and the one-rank
+    run read the same codes without holding the whole."""
+
+    def __init__(self, genomes, variants, block, seed):
+        self.genome_count, self.variant_count = genomes, variants
+        self.block, self.seed = block, seed
+
+    def dense_block_t(self, v_lo, v_hi):
+        if v_lo % self.block or v_hi - v_lo > self.block:
+            raise ValueError("blocks must be the generator's")
+        rng = np.random.default_rng((self.seed, v_lo))
+        return rng.integers(0, 3, (v_hi - v_lo, self.genome_count), dtype=np.uint8)
+
+
+def multidevice_inputs():
+    """The seeded inputs of phase 3i."""
+    from kgl_gene_tpu_torch.stats.inbreeding import synthetic_diploid_population
+
+    rng = np.random.default_rng(SEED + 3)
+    region = gene_region(rng)
+    positions, alt, valid = snp_batch(rng, MULTI_STEP_B, MULTI_STEP_K, REGION_LEN)
+    zygosity = rng.integers(0, 3, (MULTI_STEP_B, 16)).astype(np.uint8)
+    m = MULTI_INDEL
+    slots = indel_slots(rng, m["B"], m["K"], m["A"], REGION_LEN)
+    G, L = MULTI_WINDOW
+    window = synthetic_diploid_population(G, L, np.linspace(0.0, 0.5, G), seed=SEED + 4)
+    p = np.asarray(window.minor_freq, np.float32).copy()
+    p[::97] = 0.0  # invalid loci, excluded by the functions' own mask
+    Gs, Vs = MULTI_STREAMED
+    streamed_p = np.random.default_rng(SEED + 5).uniform(0.01, 0.5, Vs).astype(np.float32)
+    longs = [long_pair(np.random.default_rng(SEED + 6 + i), n, *MULTI_LONG_EDITS)
+             for i, n in enumerate(MULTI_LONG)]
+    return {"region": region, "step": (positions, alt, valid, zygosity), "indel": slots,
+            "window": (np.asarray(window.zygosity, np.uint8), p),
+            "streamed": (Gs, Vs, MULTI_STREAMED_BLOCK, SEED + 7, streamed_p), "long": longs}
+
+
+def _timed_turns(fns, mesh, windows=MULTI_STEP_WINDOWS, iters=MULTI_STEP_ITERS):
+    """Median host ms a call of each fn of `fns`, each window ending in a
+    synchronise, the fns in turns window by window; the ranks meet at a
+    barrier before each window."""
+    import torch
+    import torch.distributed as dist
+
+    per = [[] for _ in fns]
+    for fn in fns:
+        fn()
+    for _ in range(windows):
+        for fn, times in zip(fns, per):
+            torch.cuda.synchronize()
+            if mesh.group is not None:
+                dist.barrier(group=mesh.group)
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / iters)
+    return [statistics.median(t) for t in per]
+
+
+def multidevice_rank(mesh, inputs, full):
+    """One rank of phase 3i: every multi-device form on this rank's card,
+    launch counts from 0; then their times. full=False (the world-1 run)
+    runs the steps (the indel step at bands 63 and 0) and the 32,768-base
+    pair only."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.ops import pipeline
+    from kgl_gene_tpu_torch.ops.sharded_wavefront import sharded_levenshtein
+    from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
+    from kgl_gene_tpu_torch.parallel import mesh as pm
+    from kgl_gene_tpu_torch.parallel.dist import gather_rows
+
+    def gathered(x):
+        return gather_rows(x, mesh).cpu().numpy()
+
+    t_rank = time.perf_counter()
+    out = {"rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device),
+           "device_type": mesh.device.type, "backend": mesh.backend}
+    region = inputs["region"]
+    positions, alt, valid, zygosity = inputs["step"]
+    step = pipeline.make_multichip_step(mesh, region, EXONS, 0)
+    shards = [pm.shard_samples(x, mesh) for x in (positions, alt, valid, zygosity)]
+    m = MULTI_INDEL
+    # the indel step at band 63 (B1) and at band 0 (B3: the route of B3 in
+    # every rank at these shapes)
+    isteps = [pipeline.make_multichip_indel_step(mesh, region, EXONS, 0,
+                                                 pad_coding=m["K"] * m["A"], band_k=band)
+              for band in (m["band_k"], 0)]
+    ishards = [pm.shard_samples(x, mesh) for x in inputs["indel"]]
+    (a32, la32, b32, lb32), long49 = inputs["long"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    distance, counts, pop_ac = step(*shards)
+    out["step"] = (gathered(distance), counts.cpu().numpy(), pop_ac.cpu().numpy())
+    out["indel"], out["indel0"] = (tuple(gathered(x) for x in istep(*ishards))
+                                   for istep in isteps)
+    t0 = time.perf_counter()
+    out["long32"] = sharded_levenshtein(a32, la32, b32, lb32, mesh, halo=MULTI_HALO)
+    out["long32_s"] = time.perf_counter() - t0
+    if full:
+        seqs, lens = inputs["family"]
+        out["allpairs"] = pm.sharded_pairwise_distances(seqs, lens, mesh, band_k=127)
+        z, p = inputs["window"]
+        out["allele_counts"] = pm.sharded_allele_counts(z, mesh)
+        out["het_hom"] = pm.sharded_het_hom(z, mesh)
+        out["inbreeding"] = {name: pm.sharded_inbreeding(z, p, mesh, name)
+                             for name in ESTIMATOR_ATOL}
+        Gs, Vs, block, seed, sp = inputs["streamed"]
+        t0 = time.perf_counter()
+        out["streamed"] = pm.streamed_inbreeding(SeededCSR(Gs, Vs, block, seed), sp, mesh,
+                                                 block_variants=block)
+        out["streamed_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["long49"] = sharded_levenshtein(*long49, mesh, halo=MULTI_HALO)
+        out["long49_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["host_copies"] = dict(mesh.host_copies)
+    out["path_s"] = time.perf_counter() - t_rank
+
+    # B3 on the 32,768-base pair, the oracle of the sharded form: after the
+    # counts are read, so its launch is not one of the path's.
+    b3_args = [torch.as_tensor(x, device=mesh.device) for x in (a32, la32, b32, lb32)]
+    out["long32_b3"] = batched_levenshtein_kernel(*b3_args).cpu().numpy()
+
+    # Times (not counted): the step over the mesh beside the one-card step
+    # on the whole batch, in turns; the 32,768-base pair again beside B3.
+    one = pipeline.make_forward_step(region, EXONS, 0, device=mesh.device)
+    whole = [torch.as_tensor(x, device=mesh.device) for x in (positions, alt, valid)]
+    out["step_ms"], out["one_card_step_ms"] = _timed_turns(
+        [lambda: step(*shards), lambda: one(*whole)], mesh)
+    t0 = time.perf_counter()
+    sharded_levenshtein(a32, la32, b32, lb32, mesh, halo=MULTI_HALO)
+    torch.cuda.synchronize()
+    out["long32_again_s"] = time.perf_counter() - t0
+    out["long32_b3_ms"] = time_cuda(lambda: batched_levenshtein_kernel(*b3_args), 1, windows=3)
+    return out
+
+
+def chunk_row(dev, long32, errs):
+    """The chunk kernel's row of the kernels line: one chunk (H = MULTI_HALO
+    diagonals, the middle chunk, whose diagonals cross the whole table) of
+    the 32,768-base pair at world 1, host-inclusive and on the device,
+    beside chunk_plain on the same lanes. The kernel runs the chunks before
+    it, so the chunk starts from the pair's real DP state, and its outputs
+    are held against chunk_plain's from that state. bound_ms sets the
+    chunk's DP cells at WAVEFRONT_OPS_PER_CELL operations a cell against
+    the float32 rate, as every other row; issue_bound_ms (64 lanes) and
+    dispatch_bound_ms (DISPATCH_LANES_PER_SM) the same operations against
+    the rates an SM issues them at."""
+    import torch
+
+    from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+
+    s = sw.rank_lanes(*long32, 0, 1, MULTI_HALO, dev)
+    c = s.n_chunks // 2
+    for k in range(c):
+        s = sw.run_chunk(s, k)
+    d0 = 2 + c * s.H
+    kern = functools.partial(sw.chunk, s, d0)
+    plain_s = s._replace(out_pp=s.out_pp.clone(), out_p=s.out_p.clone(),
+                         result=s.result.clone())
+    kern()
+    sw.chunk_plain(plain_s, d0)
+    torch.cuda.synchronize()
+    tag = f"chunk {c} of {s.n_chunks} of the {MULTI_LONG[0]}-base pair, from its DP state"
+    errs["wavefront_chunk"] = max(
+        errs["wavefront_chunk"],
+        exact(f"wavefront_chunk vs chunk_plain, lanes d - 1 ({tag})", s.out_p[:, s.H:],
+              plain_s.out_p[:, s.H:]),
+        exact(f"wavefront_chunk vs chunk_plain, lanes d - 2 ({tag})", s.out_pp[:, s.H:],
+              plain_s.out_pp[:, s.H:]))
+    ms = time_cuda(kern, 20, windows=5)
+    device_ms = time_device([kern], 20)
+    plain_ms = time_cuda(lambda: sw.chunk_plain(plain_s, d0), 1, windows=3)
+    d = np.arange(d0, d0 + s.H)[:, None]
+    i = np.arange(s.Ma + 1)[None, :]
+    cells = int(((d - i >= 0) & (d - i <= s.Mb)).sum())
+    ops = cells * WAVEFRONT_OPS_PER_CELL
+    # a_lane and the two diagonals read, two written, and the run of text
+    # the chunk's cells read (W + H codes a pair)
+    B, W = s.a_lane.shape
+    nbytes = (6 * W + s.H) * 4 * B
+    t_ops, t_bytes = ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S
+    b_ms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    issue_ms = ops / issue_rate() * 1e3
+    dispatch_ms = ops / issue_rate(DISPATCH_LANES_PER_SM) * 1e3
+    log(f"  wavefront_chunk (one chunk of {s.H} diagonals, {s.Ma + 1} lanes, {cells} cells): "
+        f"{ms:.6f} ms host-inclusive, {device_ms:.6f} ms device; plain {plain_ms:.3f} ms; "
+        f"bound {b_ms:.6f} ms ({by}: cell operations at the float32 rate, "
+        f"{t_bytes * 1e3:.6f} ms of bytes); at the issue rate {issue_ms:.6f} ms, at the "
+        f"dispatch rate {dispatch_ms:.6f} ms")
+    return dict(name="wavefront_chunk", route="cuda",
+                source="kgl_gene_tpu_torch/csrc/sharded_wavefront.cu",
+                replaces="kgl_gene_tpu/ops/sharded_wavefront.py:42",
+                shape=f"one chunk, H={s.H}, {s.Ma + 1} lanes, {cells} cells",
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=by, int_ops=ops, issue_bound_ms=issue_ms,
+                dispatch_bound_ms=dispatch_ms)
+
+
+def family_pool(dev):
+    """Phase 3b's distinct mutants (padded codes, lengths) and their
+    all-pairs matrix at band 127 on the card (phase 3b holds it equal to
+    the CPU's): phase 3i's inputs when it runs alone."""
+    from kgl_gene_tpu_torch.analysis.lib_seqmutation import TranscriptFamilyAnalysis
+    from kgl_gene_tpu_torch.ops.edit_distance import pairwise_distance_matrix
+
+    fam = TranscriptFamilyAnalysis(*config_a_records(dev), device=dev)
+    seqs, lens = fam._padded_codes(list(fam.distinct_sequences()))
+    return seqs, lens, pairwise_distance_matrix(seqs, lens, band_k=127, device=dev)
+
+
+def phase_multidevice(dev, seqs, lens, matrix, errs):
+    """Phase 3i: the chunk kernel against its plain version; then every
+    multi-device form through run_ranks at world 1 (NCCL, cuda:0) and world
+    2 (gloo, both ranks on cuda:0), each output held against the one-card
+    form, and each rank's device, backend, host copies and launches.
+    Returns (the multidevice line, the chunk kernel's row, launches)."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.ops import pipeline
+    from kgl_gene_tpu_torch.ops.edit_distance import levenshtein_numpy
+    from kgl_gene_tpu_torch.parallel import mesh as pm
+    from kgl_gene_tpu_torch.parallel.dist import run_ranks
+
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi_line()}
+    kernels.library()  # built here once; the ranks load it
+    chunk_kernel_cases(dev, errs)
+    inputs = multidevice_inputs()
+    inputs["family"] = (np.asarray(seqs), np.asarray(lens))
+    longs = inputs["long"]
+    # The numpy DP of the two long pairs runs beside the ranks.
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    oracles = pool.submit(lambda: [levenshtein_numpy(a[0, : la[0]], b[0, : lb[0]])
+                                   for a, la, b, lb in longs])
+
+    # The one-card references, in this process.
+    region = inputs["region"]
+    positions, alt, valid, zygosity = inputs["step"]
+    ref = pipeline.make_forward_step(region, EXONS, 0, device=dev)(positions, alt, valid)
+    m = MULTI_INDEL
+    iref, iref0 = (pipeline.make_indel_forward_step(region, EXONS, 0,
+                                                    pad_coding=m["K"] * m["A"], band_k=band,
+                                                    device=dev)(*inputs["indel"])
+                   for band in (m["band_k"], 0))
+    z, p = inputs["window"]
+    stats_ref = {"allele_counts": pm.sharded_allele_counts(z, dev),
+                 "het_hom": pm.sharded_het_hom(z, dev),
+                 "inbreeding": {n: pm.sharded_inbreeding(z, p, dev, n) for n in ESTIMATOR_ATOL}}
+    Gs, Vs, block, seed, sp = inputs["streamed"]
+    t0 = time.perf_counter()
+    streamed_ref = pm.streamed_inbreeding(SeededCSR(Gs, Vs, block, seed), sp, dev,
+                                          block_variants=block)
+    out["streamed_one_rank_s"] = time.perf_counter() - t0
+
+    def check_steps(tag, o):
+        B = MULTI_STEP_B
+        exact(f"{tag} rank {o['rank']}: the step's distances vs make_forward_step",
+              torch.as_tensor(o["step"][0][:B]), ref.distance)
+        exact(f"{tag} rank {o['rank']}: allele counts", torch.as_tensor(o["step"][1]),
+              ref.allele_counts)
+        exact(f"{tag} rank {o['rank']}: pop_ac vs numpy's column sums",
+              torch.as_tensor(o["step"][2]), torch.as_tensor(zygosity.astype(np.int64).sum(0)))
+        if o["step"][1].dtype != np.int32 or o["step"][2].dtype != np.int32:
+            raise AssertionError("allele counts and pop_ac must stay int32")
+        for key, band, want in (("indel", m["band_k"], iref), ("indel0", 0, iref0)):
+            for name, got in zip(("coding_len", "distance", "validity_code"), o[key]):
+                exact(f"{tag} rank {o['rank']}: the indel step's {name} at band {band} vs "
+                      "make_indel_forward_step", torch.as_tensor(got[: m["B"]]),
+                      getattr(want, name))
+        exact(f"{tag} rank {o['rank']}: the {MULTI_LONG[0]}-base pair vs B3",
+              torch.as_tensor(o["long32"]), torch.as_tensor(o["long32_b3"]))
+
+    results = {}
+    for world, backend, full in ((1, "nccl", False), (2, "gloo", True)):
+        tag = f"world {world} ({backend})"
+        log(f"  {tag}: run_ranks, deadline {MULTI_TIMEOUT_S:.0f} s")
+        t0 = time.perf_counter()
+        ranks = run_ranks(multidevice_rank, world, backend=backend, device="cuda",
+                          timeout_s=MULTI_TIMEOUT_S, args=(inputs, full))
+        out[f"world{world}_wall_s"] = time.perf_counter() - t0
+        expected = ("myers", "translate", "wavefront", "wavefront_chunk")
+        for o in ranks:
+            if o["device_type"] != "cuda" or o["backend"] != backend:
+                raise AssertionError(f"{tag} rank {o['rank']} ran on {o['device']} "
+                                     f"over {o['backend']}")
+            missing = [k for k in expected if o["launches"].get(k, 0) < 1]
+            if missing:
+                raise AssertionError(f"{tag} rank {o['rank']}: {missing} never launched "
+                                     f"({o['launches']})")
+            check_steps(tag, o)
+            log(f"  {tag} rank {o['rank']} on {o['device']}: launches {o['launches']}, "
+                f"host copies {o['host_copies']}, path {o['path_s']:.1f} s")
+            if not full:
+                continue
+            exact(f"{tag} rank {o['rank']}: sharded_pairwise_distances (band 127) vs "
+                  "phase 3b's matrix, every entry", torch.as_tensor(o["allpairs"]),
+                  torch.as_tensor(matrix))
+            exact(f"{tag} rank {o['rank']}: sharded_allele_counts",
+                  torch.as_tensor(o["allele_counts"]),
+                  torch.as_tensor(stats_ref["allele_counts"]))
+            for got, want in zip(o["het_hom"], stats_ref["het_hom"]):
+                exact(f"{tag} rank {o['rank']}: sharded_het_hom", torch.as_tensor(got),
+                      torch.as_tensor(want))
+            for name, atol in ESTIMATOR_ATOL.items():
+                err = float(np.abs(o["inbreeding"][name] - stats_ref["inbreeding"][name]).max())
+                out[f"inbreeding_{name}_max_abs_err"] = max(
+                    err, out.get(f"inbreeding_{name}_max_abs_err", 0.0))
+                if not err <= atol:
+                    raise AssertionError(f"{tag} sharded {name} differs by {err}")
+            for name in streamed_ref:
+                if not np.array_equal(o["streamed"][name], streamed_ref[name]):
+                    raise AssertionError(f"{tag} streamed {name} differs from the one-rank run")
+            log(f"  {tag} rank {o['rank']}: {len(ESTIMATOR_ATOL)} estimators within "
+                "tolerance; streamed inbreeding bit for bit equal to the one-rank run "
+                f"({Gs} genomes x {Vs} variants)")
+        results[world] = ranks
+    want32, want49 = oracles.result()
+    pool.shutdown()
+    for world, ranks in results.items():
+        for o in ranks:
+            pairs = [("long32", MULTI_LONG[0], want32)]
+            if "long49" in o:
+                pairs.append(("long49", MULTI_LONG[1], want49))
+            for key, n, want in pairs:
+                exact(f"world {world} rank {o['rank']}: sharded_levenshtein, {n}-base pair, "
+                      "vs the numpy DP", torch.as_tensor(o[key]), torch.as_tensor([want]))
+    out.update(long32_distance=want32, long49_distance=want49,
+               streamed_shape=[Gs, Vs], window_shape=list(MULTI_WINDOW), step_B=MULTI_STEP_B)
+    keep = ("rank", "device", "backend", "launches", "host_copies", "path_s", "step_ms",
+            "one_card_step_ms", "long32_s", "long32_again_s", "long32_b3_ms", "long49_s",
+            "streamed_s")
+    out["worlds"] = {str(w): [{k: o[k] for k in keep if k in o} for o in ranks]
+                     for w, ranks in results.items()}
+    row = chunk_row(dev, longs[0], errs)
+    launches = sum(o["launches"].get("wavefront_chunk", 0)
+                   for ranks in results.values() for o in ranks)
+    out["phase_s"] = time.perf_counter() - t_phase
+    for w, ranks in results.items():
+        for o in ranks:
+            log(f"  world {w} rank {o['rank']}: step {o['step_ms']:.3f} ms over the mesh, "
+                f"{o['one_card_step_ms']:.3f} ms one card (B = {MULTI_STEP_B}); "
+                f"{MULTI_LONG[0]}-base pair {o['long32_again_s']:.3f} s sharded, "
+                f"B3 {o['long32_b3_ms']:.3f} ms")
+    return out, row, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3831,7 +4297,8 @@ def main() -> int:
     card = nvidia_smi_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
-                          "myers_pool", "walk", "mica", "local", "local_pool"), 0)
+                          "myers_pool", "walk", "mica", "local", "local_pool",
+                          "wavefront_chunk"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -3935,6 +4402,12 @@ def main() -> int:
         package["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3h: {package['phase_s']:.1f} s")
 
+        phase = "main path: the multi-device forms"
+        log(f"phase 3i: {phase}")
+        multidevice, chunk_kernel_row, launches["wavefront_chunk"] = phase_multidevice(
+            dev, seqs, lens, matrix, errs)
+        log(f"  phase 3i: {multidevice['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -3942,6 +4415,7 @@ def main() -> int:
         rows += phase_family_times(dev, records, ref, seqs, lens, matrix, errs)
         rows.append(mica_row)
         rows += phase_local_times(dev, local_state, errs)
+        rows.append(chunk_kernel_row)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -3986,6 +4460,7 @@ def main() -> int:
     print(json.dumps({"ontology": ontology}))
     print(json.dumps({"checkpoint_local": checkpoint_local}))
     print(json.dumps({"package": package}))
+    print(json.dumps({"multidevice": multidevice}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,10 @@ _SIGNATURES = {
     # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream: the
     # first design on padded lists (scripts/torch_kernel_bodies.py)
     "kgt_mica_tiles": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
+    # a_lane, b, b_stride, Mb, la, lb, in_pp, in_p, out_pp, out_p, result, B, W,
+    # i0, Ma, d0, H, stream: one chunk of the sharded long-pair wavefront
+    "kgt_wavefront_chunk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P),
     # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
     # by chip_smoke.py for the walk's latency bound
     "kgt_chase": (_P, _I, _I, _P, _P),

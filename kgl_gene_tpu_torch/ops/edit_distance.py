@@ -219,29 +219,8 @@ def pairwise_distance_matrix(seqs, lens, band_k=None, device=None) -> np.ndarray
     per-pair mode at the smallest Myers band >= band_k, and pairs outside
     its exactness contract re-run at wider bands, then on the exact
     wavefront (kernel B3). With band_k=None every pair runs on B3. Both
-    routes are exact."""
-    from .myers import myers_band_for, myers_pairs_device
-    from .wavefront import batched_levenshtein_kernel
+    routes are exact. It is parallel.mesh.sharded_pairwise_distances on a
+    world of one rank."""
+    from ..parallel.mesh import sharded_pairwise_distances
 
-    dev = resolve_device(device)
-    seqs = np.asarray(seqs)
-    lens = np.asarray(lens, dtype=np.int32)
-    n = seqs.shape[0]
-    iu, ju = np.triu_indices(n, k=1)
-    out = np.zeros((n, n), dtype=np.float64)
-    pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=dev)
-    pool_lens = torch.as_tensor(lens, device=dev)
-    if band_k is not None:
-        band = myers_band_for(band_k) or 511
-        dist = myers_pairs_device(pool, pool_lens, iu, ju, band_k=band)
-        ok = (dist <= band) & (np.abs(lens[iu] - lens[ju]) <= band)
-        pending = np.nonzero(~ok)[0]
-        if pending.size:
-            bi, bj = iu[pending], ju[pending]
-            dist[pending] = _rerun_overflow_pairs(
-                seqs[bi], lens[bi], seqs[bj], lens[bj], band, dev)
-    else:
-        dist = gathered_pairs(batched_levenshtein_kernel, pool, pool_lens, iu, ju)
-    out[iu, ju] = dist
-    out[ju, iu] = dist
-    return out
+    return sharded_pairwise_distances(seqs, lens, resolve_device(device), band_k)

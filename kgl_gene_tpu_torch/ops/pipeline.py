@@ -19,6 +19,11 @@ width (B2) and measures each mutant against the reference coding sequence
 with its own length: B1 in shared-text mode when the capture's edit bound
 gives a band, B3 otherwise.
 
+make_multichip_step and make_multichip_indel_step are the steps over a
+mesh of ranks (parallel/dist.py SampleMesh, one process a rank): each rank
+runs the same step body on its shard of the genomes, on its own device,
+and the SNP step sums its allele counts over the ranks.
+
 On the card every kernel launches; on the CPU each wrapper runs its plain
 PyTorch version, which is how the tests hold the steps against the JAX
 ones.
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.dist import SampleMesh, psum
 from ..sequence.alphabet import DNA5, AminoAcid
 from ..sequence.tables import amino_translation_table
 from .myers import myers_band_for, myers_distance_padded
@@ -46,6 +52,8 @@ __all__ = [
     "indel_band_for",
     "make_forward_step",
     "make_indel_forward_step",
+    "make_multichip_indel_step",
+    "make_multichip_step",
     "pad_coding_for",
     "reconstruct_indel_coding_host",
     "reconstruct_indel_coding_plain",
@@ -373,6 +381,68 @@ def make_indel_forward_step(
               for x in (pos, kind, del_len, ins_codes, ins_len, alt_code, valid)),
             amino_lut, AminoAcid.STOP, start_codes, pad_coding, band_k,
         )
+
+    return step
+
+
+def make_multichip_step(
+    mesh: SampleMesh,
+    region_codes: np.ndarray,
+    exon_intervals: np.ndarray,
+    region_start: int,
+    reverse_strand: bool = False,
+    table_name: str = "NCBI_TABLE_1",
+):
+    """The SNP step over a mesh of ranks: samples sharded over the ranks,
+    the transcript geometry on every rank, allele counts summed over them.
+
+    step(positions, alt_codes, valid, zygosity) takes this rank's shard of
+    each (parallel.mesh.shard_samples: axis 0 padded with zeros to a
+    multiple of the world size, so a padded genome has no valid SNP and
+    distance 0) and returns (distance, allele_counts, pop_ac): this rank's
+    (B_local,) int32 distances, and the (K,) allele counts and the
+    (V,) zygosity column sums, both int32 and summed over the ranks. The
+    body on each rank is forward on the rank's device, so kernels B1, B2
+    and B3 run there as on one card (the plain versions on the CPU)."""
+    one = make_forward_step(region_codes, exon_intervals, region_start,
+                            reverse_strand, table_name, device=mesh.device)
+
+    def step(positions, alt_codes, valid, zygosity):
+        out = one(positions, alt_codes, valid)
+        zyg = torch.as_tensor(zygosity, device=mesh.device)
+        pop_ac = zyg.to(torch.int32).sum(0, dtype=torch.int32)
+        return out.distance, psum(out.allele_counts, mesh), psum(pop_ac, mesh)
+
+    return step
+
+
+def make_multichip_indel_step(
+    mesh: SampleMesh,
+    region_codes: np.ndarray,
+    exon_intervals: np.ndarray,
+    region_start: int,
+    reverse_strand: bool = False,
+    table_name: str = "NCBI_TABLE_1",
+    pad_coding: int = 0,
+    band_k: int = 0,
+):
+    """The SNP + indel step over a mesh of ranks: samples sharded over the
+    ranks, the transcript geometry on every rank (the reference's fan-out
+    is the per-genome thread pool, kga_analysis_lib_seqmutation.cpp:
+    116-140).
+
+    step(pos, kind, del_len, ins_codes, ins_len, alt_code, valid) takes
+    this rank's shard of each and returns this rank's (coding_len,
+    distance, validity_code), each (B_local,) int32; the caller gathers
+    them (parallel.dist.gather_rows). pad_coding and band_k as in
+    make_indel_forward_step."""
+    one = make_indel_forward_step(region_codes, exon_intervals, region_start,
+                                  reverse_strand, table_name, pad_coding, band_k,
+                                  device=mesh.device)
+
+    def step(pos, kind, del_len, ins_codes, ins_len, alt_code, valid):
+        out = one(pos, kind, del_len, ins_codes, ins_len, alt_code, valid)
+        return out.coding_len, out.distance, out.validity_code
 
     return step
 

@@ -365,11 +365,11 @@ def test_inbreed_moments_slabs_equal_one_slab(monkeypatch):
     packed = torch.from_numpy(t_mesh.pack_block(block))
     p = torch.from_numpy(rng.uniform(0.0, 0.6, 64).astype(np.float32))
     acc = torch.zeros((12, 5))
-    monkeypatch.setattr(t_mesh, "SLAB_ELEMENTS", 1 << 20)
-    one = t_mesh._inbreed_moments(packed, p, acc)
-    for slab in (12, 36, 60):
-        monkeypatch.setattr(t_mesh, "SLAB_ELEMENTS", slab)
-        np.testing.assert_allclose(t_mesh._inbreed_moments(packed, p, acc).numpy(),
+    one = t_mesh._inbreed_moments(packed, p, acc, 16)
+    for slab_rows in (1, 3, 5):
+        np.testing.assert_allclose(t_mesh._inbreed_moments(packed, p, acc, slab_rows).numpy(),
                                    one.numpy(), rtol=1e-6, atol=1e-5)
+    monkeypatch.setattr(t_mesh, "SLAB_ELEMENTS", 60)
+    assert [t_mesh.slab_rows_for(g) for g in (1, 12, 16, 61)] == [32, 4, 2, 1]
     unpacked = np.stack([(t_mesh.pack_block(block) >> (2 * j)) & 3 for j in range(4)], axis=1)
     np.testing.assert_array_equal(unpacked.reshape(64, 12), block)

@@ -177,6 +177,15 @@ def test_port_runs_with_jax_blocked():
         "    '--workDirectory', work, '--device', 'cpu']) == 0\n"
         "assert os.listdir(work) == ['interval_density.csv']\n"
         "assert len(open(os.path.join(work, 'interval_density.csv')).readlines()) == 1 + 12\n"
+        "from kgl_gene_tpu_torch.parallel.dist import SampleMesh, run_ranks\n"
+        "from kgl_gene_tpu_torch.parallel.mesh import sharded_pairwise_distances\n"
+        "from kgl_gene_tpu_torch.ops.pipeline import make_multichip_step\n"
+        "from kgl_gene_tpu_torch.ops.sharded_wavefront import sharded_levenshtein\n"
+        "from kgl_gene_tpu_torch.entry import dryrun_multichip\n"
+        "one = SampleMesh.single('cpu')\n"
+        "assert sharded_levenshtein(np.array([[0, 1, 2, 3]]), [4], np.array([[0, 2, 3]]), [3],\n"
+        "                           one, halo=2).tolist() == [1]\n"
+        "assert sharded_pairwise_distances(np.array([[0, 1], [1, 1]]), [2, 2], one)[0, 1] == 1\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"
         "print('ok')\n"
