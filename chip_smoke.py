@@ -129,26 +129,31 @@ and read just after where it launches a kernel:
      each analysis on both runs, the files and the launches;
   9. the multi-device forms (phase 3i): kernel wavefront_chunk
      (csrc/sharded_wavefront.cu, one chunk of the sharded long-pair
-     wavefront a launch) against chunk_plain on ragged pairs to 4,000
-     bases, halos 32 and 128, worlds 1 and 2 simulated in this process;
+     wavefront a launch, or a few past 512 diagonals) against chunk_plain
+     on ragged pairs to 4,000 bases, halos 32, 128, 600 and 1,024, worlds
+     1 and 2 simulated in this process, and at world 1 its cooperative
+     route (kgt_wavefront_chunks: a run of chunks in one launch, a grid
+     barrier between two) bit for bit against the launches a chunk;
      then parallel.dist.run_ranks at world 1 on NCCL and at world 2 on
      gloo with both ranks on cuda:0 (NCCL refuses two ranks on one card),
      counts from 0 in each rank: make_multichip_step at B = 4,096, K = 48,
      S = 3,000 and make_multichip_indel_step at B = 256, bands 63 and 0
      (B1, B3), each gathered and equal to the one-card step (pop_ac to
-     numpy's column sums), and sharded_levenshtein on a 32,768-base pair
-     equal to B3 (launched after the counts are read); at
-     world 2 also sharded_pairwise_distances over phase 3b's 256 mutants
-     (32,640 pairs, band 127) equal to phase 3b's matrix, sharded allele
-     counts, het/hom and the four estimators on a 1,000 x 10,000 window
-     (within ESTIMATOR_ATOL of the one-device forms), streamed inbreeding
-     over a seeded 1,000 x 2^18 CSR bit for bit equal to the one-rank run,
-     and a 49,152-base pair (past B3's MAX_KERNEL_LEN); both long pairs
-     equal to the numpy DP. It fails unless every rank ran on cuda over
-     its backend and launched B1, B2, B3 and the chunk kernel, within its
-     deadline. It prints each rank's device, backend, copies through the
-     host and launches, the step over the mesh beside the one-card step in
-     turns, the 32,768-base pair beside B3, and the phase's seconds.
+     numpy's column sums), sharded_levenshtein on a 32,768-base pair
+     equal to B3 (launched after the counts are read) and on a
+     49,152-base pair (past B3's MAX_KERNEL_LEN), both equal to the numpy
+     DP; at world 2 also sharded_pairwise_distances over phase 3b's 256
+     mutants (32,640 pairs, band 127) equal to phase 3b's matrix, sharded
+     allele counts, het/hom and the four estimators on a 1,000 x 10,000
+     window (within ESTIMATOR_ATOL of the one-device forms) and streamed
+     inbreeding over a seeded 1,000 x 2^18 CSR bit for bit equal to the
+     one-rank run. It fails unless every rank ran on cuda over its
+     backend and launched B1, B2, B3 and the chunk kernel, the rank of
+     world 1 by the cooperative route alone and the ranks of world 2 by
+     the launches a chunk alone, within its deadline. It prints each
+     rank's device, backend, copies through the host and launches, the
+     step over the mesh beside the one-card step in turns, the
+     32,768-base pair beside B3, and the phase's seconds.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -197,7 +202,7 @@ sizes, checks and the MICA kernel's times and bounds), one
 {"checkpoint_local": {...}} (phase 3g's seconds and checks), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
 one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
-{"kernels": [...]} of eleven rows (`local` at B = 256 against the shared
+{"kernels": [...]} of twelve rows (`local` at B = 256 against the shared
 reference and
 `local_pool` over the 32,640 pairs are the local kernel's; the rows of
 B1, B2 and B3 also carry their launches
@@ -205,8 +210,12 @@ in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
 issue floor, and it carries design_issue_ms; the walk's carries
 cold_ms, latency_bound_ms, cold_latency_bound_ms and its first design's
-times; wavefront_chunk's carries dispatch_bound_ms beside issue_bound_ms
-and holds the middle chunk of the 32,768-base pair from its DP state), the
+times; wavefront_chunk's carries dispatch_bound_ms beside issue_bound_ms,
+holds the middle chunk of the 32,768-base pair from its DP state and
+carries the first design's time in the same windows; wavefront_chunks,
+the cooperative route, times 8 chunks of that pair in one launch and
+carries the whole pair's wall split into the launch's device time and the
+host's rest), the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -3855,6 +3864,8 @@ MULTI_STEP_ITERS = 3                 # calls a window
 # version: ragged pairs from empty to a few thousand bases.
 CHUNK_CASES = (((257, 100, 31, 1, 0, 3_000, 2_500), (190, 211, 257, 0, 5, 2_990, 2_600)),
                ((4_000,), (3_993,)))
+CHUNK_HALOS = (32, 128, 600, 1_024)  # 600 and 1,024: past the first design's cap of 512
+CHUNK_RUN = 8                         # chunks of the cooperative route's timed launch
 
 
 def long_pair(rng, n, n_sub, n_del):
@@ -3890,9 +3901,12 @@ def simulate_ranks(seq_a, la, seq_b, lb, world, halo, dev, step):
 
 def chunk_kernel_cases(dev, errs):
     """Kernel wavefront_chunk against chunk_plain (exact) on ragged pairs
-    up to a few thousand bases, halos 32 and 128, worlds 1 and 2 (the
-    ranks simulated in this process): the distances, every rank's last
-    lanes, and the numpy DP."""
+    up to a few thousand bases, halos 32 and 128 and the halos past the
+    first design's cap of 512 (600 and 1,024: two launches a chunk), worlds
+    1 and 2 (the ranks simulated in this process): the distances, every
+    rank's last lanes, and the numpy DP. At world 1 and halos to 512 the
+    cooperative route too, in two runs of chunks, bit for bit against the
+    launches a chunk."""
     import torch
 
     from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
@@ -3909,7 +3923,7 @@ def chunk_kernel_cases(dev, errs):
         la, lb = np.array(a_lens, np.int32), np.array(b_lens, np.int32)
         want = torch.as_tensor([levenshtein_numpy(a, b) for a, b in zip(a_rows, b_rows)])
         for world in (1, 2):
-            for halo in (32, 128):
+            for halo in CHUNK_HALOS:
                 tag = f"lengths to {max(a_lens)}, world {world}, halo {halo}"
                 got, k_states = simulate_ranks(sa, la, sb, lb, world, halo, dev, sw.chunk)
                 plain, p_states = simulate_ranks(sa, la, sb, lb, world, halo, dev,
@@ -3922,6 +3936,20 @@ def chunk_kernel_cases(dev, errs):
                                     ps.pp[:, ps.H:]))
                 exact(f"  the same vs the numpy DP ({tag})", got, want)
                 errs["wavefront_chunk"] = max(errs["wavefront_chunk"], err)
+                if world > 1 or halo > sw.MAX_SUB_HALO:
+                    continue
+                s = sw.rank_lanes(sa, la, sb, lb, 0, 1, halo, dev)
+                if not sw.one_launch_fits(s):
+                    raise AssertionError(f"the cooperative route refuses {tag}")
+                n = s.n_chunks // 3
+                s = sw.run_chunks(sw.run_chunks(s, 0, n), n, s.n_chunks - n)
+                torch.cuda.synchronize()
+                errs["wavefront_chunks"] = max(
+                    errs["wavefront_chunks"],
+                    exact(f"wavefront_chunks ({n} + {s.n_chunks - n} chunks a launch) vs the "
+                          f"launches a chunk, distances ({tag})", s.result, got),
+                    exact("  owned lanes", s.p[:, s.H:], k_states[0].p[:, s.H:]),
+                    exact("  lanes d - 2", s.pp[:, s.H:], k_states[0].pp[:, s.H:]))
 
 
 class SeededCSR:
@@ -3989,8 +4017,8 @@ def _timed_turns(fns, mesh, windows=MULTI_STEP_WINDOWS, iters=MULTI_STEP_ITERS):
 def multidevice_rank(mesh, inputs, full):
     """One rank of phase 3i: every multi-device form on this rank's card,
     launch counts from 0; then their times. full=False (the world-1 run)
-    runs the steps (the indel step at bands 63 and 0) and the 32,768-base
-    pair only."""
+    runs the steps (the indel step at bands 63 and 0) and the two long
+    pairs only."""
     import torch
 
     from kgl_gene_tpu_torch import kernels
@@ -4040,9 +4068,9 @@ def multidevice_rank(mesh, inputs, full):
         out["streamed"] = pm.streamed_inbreeding(SeededCSR(Gs, Vs, block, seed), sp, mesh,
                                                  block_variants=block)
         out["streamed_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out["long49"] = sharded_levenshtein(*long49, mesh, halo=MULTI_HALO)
-        out["long49_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["long49"] = sharded_levenshtein(*long49, mesh, halo=MULTI_HALO)
+    out["long49_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     out["launches"] = dict(kernels.LAUNCHES)
     out["host_copies"] = dict(mesh.host_copies)
@@ -4067,66 +4095,193 @@ def multidevice_rank(mesh, inputs, full):
     return out
 
 
-def chunk_row(dev, long32, errs):
-    """The chunk kernel's row of the kernels line: one chunk (H = MULTI_HALO
-    diagonals, the middle chunk, whose diagonals cross the whole table) of
-    the 32,768-base pair at world 1, host-inclusive and on the device,
-    beside chunk_plain on the same lanes. The kernel runs the chunks before
-    it, so the chunk starts from the pair's real DP state, and its outputs
-    are held against chunk_plain's from that state. bound_ms sets the
-    chunk's DP cells at WAVEFRONT_OPS_PER_CELL operations a cell against
-    the float32 rate, as every other row; issue_bound_ms (64 lanes) and
+def time_queued(prep, fn, reps=3, queued=True):
+    """Median ms of fn between two events, each rep after prep (not timed).
+    queued: the events and fn wait behind a sleep of the card (about a
+    millisecond), so the host's time to issue fn is not in the reading;
+    else the card waits for it (host-inclusive)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        prep()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(2_000_000)
+        else:
+            torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def chunk_cells(s, d_lo, d_hi):
+    """DP cells of the table on diagonals d_lo .. d_hi - 1."""
+    d = np.arange(d_lo, d_hi)
+    return int(np.clip(np.minimum(d, s.Ma) - np.maximum(0, d - s.Mb) + 1, 0, None).sum())
+
+
+def chunk_bounds(s, cells, chunks):
+    """(bound_ms, bound_by, int_ops, issue_ms, dispatch_ms, bytes_ms) of
+    `chunks` chunks over `cells` DP cells: WAVEFRONT_OPS_PER_CELL operations
+    a cell against the float32 rate, the issue rate and the dispatch rate;
+    a_lane and the two diagonals read, two written, and the run of text the
+    chunk's cells read (W + H codes a pair), a chunk."""
+    ops = cells * WAVEFRONT_OPS_PER_CELL
+    B, W = s.a_lane.shape
+    nbytes = (6 * W + s.H) * 4 * B * chunks
+    t_ops, t_bytes = ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", ops,
+            ops / issue_rate() * 1e3, ops / issue_rate(DISPATCH_LANES_PER_SM) * 1e3, t_bytes * 1e3)
+
+
+def chunk_rows(dev, long32, errs):
+    """The chunk kernel's two rows of the kernels line, on the 32,768-base
+    pair at world 1. wavefront_chunk: one chunk (H = MULTI_HALO diagonals,
+    the middle chunk, whose diagonals cross the whole table) from the pair's
+    real DP state (the chunks before it run first), held against
+    chunk_plain, host-inclusive and on the device, with the first design
+    (kgt_wavefront_chunk_lane, from scripts/torch_kernel_bodies.py) timed
+    in turns in the same windows and held too. wavefront_chunks: the
+    cooperative route over CHUNK_RUN chunks from the same state in one
+    launch against run_chunks_plain, each launch from a fresh copy of the
+    state; and the whole pair through sharded_levenshtein, its wall split
+    into the one launch's device time and the rest. bound_ms sets the
+    chunks' DP cells at WAVEFRONT_OPS_PER_CELL operations a cell against the
+    float32 rate, as every other row; issue_bound_ms (64 lanes) and
     dispatch_bound_ms (DISPATCH_LANES_PER_SM) the same operations against
     the rates an SM issues them at."""
     import torch
 
+    from kgl_gene_tpu_torch import kernels
     from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+    from kgl_gene_tpu_torch.parallel.dist import SampleMesh
 
+    lane_body = kernel_bodies().chunk_lane
     s = sw.rank_lanes(*long32, 0, 1, MULTI_HALO, dev)
     c = s.n_chunks // 2
-    for k in range(c):
-        s = sw.run_chunk(s, k)
+    s = sw.run_chunks(s, 0, c)
     d0 = 2 + c * s.H
-    kern = functools.partial(sw.chunk, s, d0)
-    plain_s = s._replace(out_pp=s.out_pp.clone(), out_p=s.out_p.clone(),
-                         result=s.result.clone())
+    B, W = s.a_lane.shape
+
+    def fresh(x):
+        return x._replace(out_pp=x.out_pp.clone(), out_p=x.out_p.clone(), result=x.result.clone())
+
+    new_s, lane_s, plain_s = fresh(s), fresh(s), fresh(s)
+    kern = functools.partial(sw.chunk, new_s, d0)
+    lane = functools.partial(lane_body, lane_s, d0)
     kern()
+    lane()
     sw.chunk_plain(plain_s, d0)
     torch.cuda.synchronize()
     tag = f"chunk {c} of {s.n_chunks} of the {MULTI_LONG[0]}-base pair, from its DP state"
-    errs["wavefront_chunk"] = max(
-        errs["wavefront_chunk"],
-        exact(f"wavefront_chunk vs chunk_plain, lanes d - 1 ({tag})", s.out_p[:, s.H:],
-              plain_s.out_p[:, s.H:]),
-        exact(f"wavefront_chunk vs chunk_plain, lanes d - 2 ({tag})", s.out_pp[:, s.H:],
-              plain_s.out_pp[:, s.H:]))
+    for name, got in (("wavefront_chunk", new_s), ("the first design", lane_s)):
+        err = max(exact(f"{name} vs chunk_plain, lanes d - 1 ({tag})", got.out_p[:, s.H:],
+                        plain_s.out_p[:, s.H:]),
+                  exact(f"{name} vs chunk_plain, lanes d - 2 ({tag})", got.out_pp[:, s.H:],
+                        plain_s.out_pp[:, s.H:]))
+        if name == "wavefront_chunk":
+            errs["wavefront_chunk"] = max(errs["wavefront_chunk"], err)
     ms = time_cuda(kern, 20, windows=5)
-    device_ms = time_device([kern], 20)
+    turns = {"new": [], "lane": []}
+    for _ in range(2):
+        for name, fn in (("new", kern), ("lane", lane), ("lane", lane), ("new", kern)):
+            turns[name].append(time_device([fn], 20, windows=3))
+    device_ms, lane_ms = (statistics.median(turns[k]) for k in ("new", "lane"))
     plain_ms = time_cuda(lambda: sw.chunk_plain(plain_s, d0), 1, windows=3)
-    d = np.arange(d0, d0 + s.H)[:, None]
-    i = np.arange(s.Ma + 1)[None, :]
-    cells = int(((d - i >= 0) & (d - i <= s.Mb)).sum())
-    ops = cells * WAVEFRONT_OPS_PER_CELL
-    # a_lane and the two diagonals read, two written, and the run of text
-    # the chunk's cells read (W + H codes a pair)
-    B, W = s.a_lane.shape
-    nbytes = (6 * W + s.H) * 4 * B
-    t_ops, t_bytes = ops / OPS_PER_S, nbytes / MEM_BYTES_PER_S
-    b_ms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-    issue_ms = ops / issue_rate() * 1e3
-    dispatch_ms = ops / issue_rate(DISPATCH_LANES_PER_SM) * 1e3
-    log(f"  wavefront_chunk (one chunk of {s.H} diagonals, {s.Ma + 1} lanes, {cells} cells): "
-        f"{ms:.6f} ms host-inclusive, {device_ms:.6f} ms device; plain {plain_ms:.3f} ms; "
-        f"bound {b_ms:.6f} ms ({by}: cell operations at the float32 rate, "
-        f"{t_bytes * 1e3:.6f} ms of bytes); at the issue rate {issue_ms:.6f} ms, at the "
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps, T, tiles = sw.chunk_geometry(W - s.H, s.H, B, sms)
+    with torch.cuda.device(dev):
+        held = kernels.library().kgt_wavefront_chunks_blocks(warps, s.H)
+    geometry = {"lanes_a_thread": sw.CHUNK_LANES_A_THREAD,
+                "exchange_steps": sw.CHUNK_EXCHANGE_STEPS, "warps": warps, "owned_lanes": T,
+                "tiles": tiles, "blocks_an_sm": held // sms}
+    cells = chunk_cells(s, d0, d0 + s.H)
+    b_ms, by, ops, issue_ms, dispatch_ms, bytes_ms = chunk_bounds(s, cells, 1)
+    log(f"  wavefront_chunk (one chunk of {s.H} diagonals, {s.Ma + 1} lanes, {cells} cells; "
+        f"{geometry}): {ms:.6f} ms host-inclusive, {device_ms:.6f} ms device (turns "
+        f"{turns['new']}); the first design {lane_ms:.6f} ms device (turns {turns['lane']}); "
+        f"plain {plain_ms:.3f} ms; bound {b_ms:.6f} ms ({by}: cell operations at the float32 "
+        f"rate, {bytes_ms:.6f} ms of bytes); at the issue rate {issue_ms:.6f} ms, at the "
         f"dispatch rate {dispatch_ms:.6f} ms")
-    return dict(name="wavefront_chunk", route="cuda",
+    one = dict(name="wavefront_chunk", route="cuda",
+               source="kgl_gene_tpu_torch/csrc/sharded_wavefront.cu",
+               replaces="kgl_gene_tpu/ops/sharded_wavefront.py:42",
+               shape=f"one chunk, H={s.H}, {s.Ma + 1} lanes, {cells} cells",
+               ms=ms, device_ms=device_ms, first_design_device_ms=lane_ms, plain_ms=plain_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=by, int_ops=ops,
+               issue_bound_ms=issue_ms, dispatch_bound_ms=dispatch_ms, geometry=geometry)
+
+    # The cooperative route: CHUNK_RUN chunks from the same state in one
+    # launch, each timed launch from a fresh copy of the state (the launch
+    # overwrites its input: the chunks alternate the two buffers).
+    saved = (s.pp.clone(), s.p.clone())
+    run_s = fresh(s)
+    want = sw.run_chunks_plain(fresh(s)._replace(pp=saved[0].clone(), p=saved[1].clone()), c,
+                               CHUNK_RUN)
+
+    def restore():
+        run_s.pp.copy_(saved[0])
+        run_s.p.copy_(saved[1])
+
+    restore()
+    got = sw.run_chunks(run_s, c, CHUNK_RUN)
+    torch.cuda.synchronize()
+    tag = f"chunks {c} .. {c + CHUNK_RUN - 1} of the {MULTI_LONG[0]}-base pair in one launch"
+    errs["wavefront_chunks"] = max(
+        errs["wavefront_chunks"],
+        exact(f"wavefront_chunks vs run_chunks_plain, lanes d - 1 ({tag})", got.p[:, s.H:],
+              want.p[:, s.H:]),
+        exact(f"wavefront_chunks vs run_chunks_plain, lanes d - 2 ({tag})", got.pp[:, s.H:],
+              want.pp[:, s.H:]))
+    run = functools.partial(sw.run_chunks, run_s, c, CHUNK_RUN)
+    run_ms = time_queued(restore, run, reps=5, queued=False)
+    run_device_ms = time_queued(restore, run, reps=5)
+    run_plain_ms = time_cuda(lambda: sw.run_chunks_plain(fresh(want), c, CHUNK_RUN), 1,
+                             windows=2)
+    run_cells = chunk_cells(s, d0, d0 + CHUNK_RUN * s.H)
+    rb_ms, rby, rops, rissue_ms, rdispatch_ms, _ = chunk_bounds(s, run_cells, CHUNK_RUN)
+
+    # The whole pair as sharded_levenshtein runs it at world 1: its wall,
+    # and the device time of its one launch on the same rank lanes.
+    mesh = SampleMesh.single(dev)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sw.sharded_levenshtein(*long32, mesh, halo=MULTI_HALO)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    pair = sw.rank_lanes(*long32, 0, 1, MULTI_HALO, dev)
+    start = (pair.pp.clone(), pair.p.clone(), pair.result.clone())
+
+    def reset():
+        for x, y in zip((pair.pp, pair.p, pair.result), start):
+            x.copy_(y)
+
+    pair_device_ms = time_queued(reset, lambda: sw.run_chunks(pair, 0, pair.n_chunks))
+    pair_wall_ms = statistics.median(walls)
+    pair_cells = chunk_cells(pair, 2, 2 + pair.n_chunks * pair.H)
+    pair_bound_ms = chunk_bounds(pair, pair_cells, pair.n_chunks)[0]
+    log(f"  wavefront_chunks ({CHUNK_RUN} chunks in one launch, {run_cells} cells): "
+        f"{run_ms:.6f} ms with the host's launch, {run_device_ms:.6f} ms device "
+        f"({run_device_ms / CHUNK_RUN:.6f} a chunk); plain {run_plain_ms:.3f} ms; bound "
+        f"{rb_ms:.6f} ms; the whole pair ({pair.n_chunks} chunks, one launch) "
+        f"{pair_wall_ms:.4f} ms wall (runs {[round(w, 4) for w in walls]}), "
+        f"{pair_device_ms:.4f} ms of it the launch on the device, "
+        f"{pair_wall_ms - pair_device_ms:.4f} ms the host's rest; bound {pair_bound_ms:.6f} ms")
+    many = dict(name="wavefront_chunks", route="cuda",
                 source="kgl_gene_tpu_torch/csrc/sharded_wavefront.cu",
-                replaces="kgl_gene_tpu/ops/sharded_wavefront.py:42",
-                shape=f"one chunk, H={s.H}, {s.Ma + 1} lanes, {cells} cells",
-                ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=by, int_ops=ops, issue_bound_ms=issue_ms,
-                dispatch_bound_ms=dispatch_ms)
+                replaces="kgl_gene_tpu/ops/sharded_wavefront.py:118",
+                shape=f"{CHUNK_RUN} chunks of H={s.H} in one launch, {run_cells} cells",
+                ms=run_ms, device_ms=run_device_ms, plain_ms=run_plain_ms, library_ms=None,
+                bound_ms=rb_ms, bound_by=rby, int_ops=rops, issue_bound_ms=rissue_ms,
+                dispatch_bound_ms=rdispatch_ms, pair_wall_ms=pair_wall_ms,
+                pair_device_ms=pair_device_ms, pair_host_ms=pair_wall_ms - pair_device_ms,
+                pair_bound_ms=pair_bound_ms, geometry=geometry)
+    return [one, many]
 
 
 def family_pool(dev):
@@ -4146,7 +4301,9 @@ def phase_multidevice(dev, seqs, lens, matrix, errs):
     multi-device form through run_ranks at world 1 (NCCL, cuda:0) and world
     2 (gloo, both ranks on cuda:0), each output held against the one-card
     form, and each rank's device, backend, host copies and launches.
-    Returns (the multidevice line, the chunk kernel's row, launches)."""
+    Returns (the multidevice line, the chunk kernel's two rows, their
+    launches by route: world 1's by the cooperative route, world 2's by the
+    launches a chunk)."""
     import torch
 
     from kgl_gene_tpu_torch import kernels
@@ -4212,15 +4369,19 @@ def phase_multidevice(dev, seqs, lens, matrix, errs):
         ranks = run_ranks(multidevice_rank, world, backend=backend, device="cuda",
                           timeout_s=MULTI_TIMEOUT_S, args=(inputs, full))
         out[f"world{world}_wall_s"] = time.perf_counter() - t0
-        expected = ("myers", "translate", "wavefront", "wavefront_chunk")
+        # world 1 runs its chunks in one cooperative launch, world 2 a
+        # launch a chunk with the ring exchange between them
+        route, other = (("wavefront_chunks", "wavefront_chunk") if world == 1
+                        else ("wavefront_chunk", "wavefront_chunks"))
+        expected = ("myers", "translate", "wavefront", route)
         for o in ranks:
             if o["device_type"] != "cuda" or o["backend"] != backend:
                 raise AssertionError(f"{tag} rank {o['rank']} ran on {o['device']} "
                                      f"over {o['backend']}")
             missing = [k for k in expected if o["launches"].get(k, 0) < 1]
-            if missing:
-                raise AssertionError(f"{tag} rank {o['rank']}: {missing} never launched "
-                                     f"({o['launches']})")
+            if missing or o["launches"].get(other, 0):
+                raise AssertionError(f"{tag} rank {o['rank']}: {missing} never launched or "
+                                     f"{other} launched ({o['launches']})")
             check_steps(tag, o)
             log(f"  {tag} rank {o['rank']} on {o['device']}: launches {o['launches']}, "
                 f"host copies {o['host_copies']}, path {o['path_s']:.1f} s")
@@ -4265,9 +4426,10 @@ def phase_multidevice(dev, seqs, lens, matrix, errs):
             "streamed_s")
     out["worlds"] = {str(w): [{k: o[k] for k in keep if k in o} for o in ranks]
                      for w, ranks in results.items()}
-    row = chunk_row(dev, longs[0], errs)
-    launches = sum(o["launches"].get("wavefront_chunk", 0)
-                   for ranks in results.values() for o in ranks)
+    rows = chunk_rows(dev, longs[0], errs)
+    launches = {name: sum(o["launches"].get(name, 0) for ranks in results.values()
+                          for o in ranks)
+                for name in ("wavefront_chunk", "wavefront_chunks")}
     out["phase_s"] = time.perf_counter() - t_phase
     for w, ranks in results.items():
         for o in ranks:
@@ -4275,7 +4437,7 @@ def phase_multidevice(dev, seqs, lens, matrix, errs):
                 f"{o['one_card_step_ms']:.3f} ms one card (B = {MULTI_STEP_B}); "
                 f"{MULTI_LONG[0]}-base pair {o['long32_again_s']:.3f} s sharded, "
                 f"B3 {o['long32_b3_ms']:.3f} ms")
-    return out, row, launches
+    return out, rows, launches
 
 
 def main() -> int:
@@ -4298,7 +4460,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
                           "myers_pool", "walk", "mica", "local", "local_pool",
-                          "wavefront_chunk"), 0)
+                          "wavefront_chunk", "wavefront_chunks"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -4404,8 +4566,9 @@ def main() -> int:
 
         phase = "main path: the multi-device forms"
         log(f"phase 3i: {phase}")
-        multidevice, chunk_kernel_row, launches["wavefront_chunk"] = phase_multidevice(
+        multidevice, chunk_kernel_rows, chunk_launches = phase_multidevice(
             dev, seqs, lens, matrix, errs)
+        launches.update(chunk_launches)
         log(f"  phase 3i: {multidevice['phase_s']:.1f} s")
 
         phase = "times"
@@ -4415,7 +4578,7 @@ def main() -> int:
         rows += phase_family_times(dev, records, ref, seqs, lens, matrix, errs)
         rows.append(mica_row)
         rows += phase_local_times(dev, local_state, errs)
-        rows.append(chunk_kernel_row)
+        rows += chunk_kernel_rows
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -4451,7 +4614,7 @@ def main() -> int:
                if r["name"] in ("translate", "myers", "wavefront") else {}),
             **{key: val for key, val in r.items()
                if ("_ms" in key or key.startswith("ms_") or key.endswith("_ns")
-                   or key.startswith("latency_") or key == "plain_pairs")
+                   or key.startswith("latency_") or key in ("plain_pairs", "geometry"))
                and key not in ("plain_ms", "bound_ms", "library_ms", "issue_bound_ms")},
         })
     print(json.dumps({"device_functions": device_functions}))

@@ -80,10 +80,20 @@ _SIGNATURES = {
     # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream: the
     # first design on padded lists (scripts/torch_kernel_bodies.py)
     "kgt_mica_tiles": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
-    # a_lane, b, b_stride, Mb, la, lb, in_pp, in_p, out_pp, out_p, result, B, W,
-    # i0, Ma, d0, H, stream: one chunk of the sharded long-pair wavefront
+    # a_lane, b, b_stride, Mb, la, lb, src_pp, src_p, dst_pp, dst_p, result, B, W,
+    # i0, Ma, d0, h, k_first, H_own, warps, stream: one launch (a chunk, or a
+    # sub-step of one) of the sharded long-pair wavefront
     "kgt_wavefront_chunk": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P),
+                            _I, _I, _I, _I, _P),
+    # a_lane, b, b_stride, Mb, la, lb, pp0, p0, pp1, p1, result, B, W, i0, Ma, d0,
+    # H, n, warps, stream: n chunks in one cooperative launch
+    "kgt_wavefront_chunks": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
+    # a_lane, b, b_stride, Mb, la, lb, in_pp, in_p, out_pp, out_p, result, B, W,
+    # i0, Ma, d0, H, stream: one chunk by the first design, a lane a thread
+    # (scripts/torch_kernel_bodies.py)
+    "kgt_wavefront_chunk_lane": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P),
     # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
     # by chip_smoke.py for the walk's latency bound
     "kgt_chase": (_P, _I, _I, _P, _P),
@@ -95,6 +105,9 @@ _SIGNATURES = {
     "kgt_mica_occupancy": (_I, _I),
     # K -> blocks of kgt_mica_tiles an SM holds; no launch
     "kgt_mica_tiles_occupancy": (_I,),
+    # warps, H -> blocks of kgt_wavefront_chunks the current device holds at
+    # once (-1: a geometry the kernel refuses); no launch
+    "kgt_wavefront_chunks_blocks": (_I, _I),
     # band_k -> 1 (warp body) or 0 (block); no launch
     "kgt_banded_body": (_I,),
     "kgt_banded_choices_body": (_I,),

@@ -17,10 +17,14 @@ the ranks (psum): the owner of lane la captures a pair, and a pair with
 la + lb < 2 is credited once, by that owner, at the start.
 
 One chunk of one rank is one launch of kernel `wavefront_chunk`
-(csrc/sharded_wavefront.cu); the ring exchange runs between launches.
-chunk_plain is the reference's algorithm in PyTorch, one diagonal a step:
-what a CPU tensor takes, and what the kernel is held against on the card.
-A CUDA tensor launches the kernel or raises.
+(csrc/sharded_wavefront.cu), or several for a halo over MAX_SUB_HALO; the
+ring exchange runs between chunks. A rank with no exchange between its
+chunks (world 1, where the reference's ppermute to itself leaves the halo
+at the sentinel) runs them all in one cooperative launch where the grid
+fits the card (run_chunks, the rule in one_launch_fits). chunk_plain is the
+reference's algorithm in PyTorch, one diagonal a step, and run_chunks_plain
+its loop over chunks: what a CPU tensor takes, and what the kernels are
+held against on the card. A CUDA tensor launches a kernel or raises.
 
 Dropped from the TPU version: the 128-lane rounding of the rank's lane
 count (:176, a TPU layout) and the sentinel-padded reversed copy of b (the
@@ -31,6 +35,7 @@ padded widths: the cells past them never reach a captured one.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,10 +44,18 @@ import torch
 from .. import kernels
 from ..parallel.dist import SampleMesh, psum, ring_shift
 
-__all__ = ["MAX_KERNEL_HALO", "RankLanes", "chunk", "chunk_plain", "halo_lanes",
-           "rank_lanes", "refresh_halo", "run_chunk", "sharded_levenshtein"]
+__all__ = ["CHUNK_EXCHANGE_STEPS", "CHUNK_LANES_A_THREAD", "CHUNK_MAX_WARPS", "MAX_SUB_HALO",
+           "RankLanes", "block_lanes", "chunk", "chunk_geometry", "chunk_plain", "halo_lanes",
+           "one_launch_fits", "rank_lanes", "refresh_halo", "run_chunk", "run_chunks",
+           "run_chunks_plain", "sharded_levenshtein", "sub_steps"]
 
-MAX_KERNEL_HALO = 512  # the kernel's block holds the halo and at least as many owned lanes
+# The kernel's geometry (csrc/sharded_wavefront.cu: kR, kS, kMaxWarps,
+# kMaxHalo): 4 lanes a thread, a warp's 32 halo lanes refreshed every 32
+# steps, at most 16 warps a block, at most 512 steps a launch.
+CHUNK_LANES_A_THREAD = 4
+CHUNK_EXCHANGE_STEPS = 32
+CHUNK_MAX_WARPS = 16
+MAX_SUB_HALO = 512
 
 
 class RankLanes(NamedTuple):
@@ -146,24 +159,78 @@ def chunk_plain(s: RankLanes, d0: int) -> None:
     s.out_p[:, H:] = p[:, H:]
 
 
-def chunk(s: RankLanes, d0: int) -> None:
-    """One chunk of one rank: kernel `wavefront_chunk` on the card (one
-    launch), chunk_plain on the CPU. The same contract as chunk_plain."""
-    if s.a_lane.device.type == "cpu":
-        return chunk_plain(s, d0)
-    if s.H > MAX_KERNEL_HALO:
-        raise ValueError(f"the chunk kernel takes a halo of at most {MAX_KERNEL_HALO}, "
-                         f"got {s.H}")
+def block_lanes(warps: int) -> int:
+    """Lanes a block of `warps` warps covers: a warp's 4 x 32 lanes, the
+    warps overlapping by their CHUNK_EXCHANGE_STEPS halo lanes."""
+    lanes = 32 * CHUNK_LANES_A_THREAD
+    return lanes + (warps - 1) * (lanes - CHUNK_EXCHANGE_STEPS)
+
+
+def sub_steps(H: int) -> list:
+    """The launches of one chunk of H diagonals: ceil(H / MAX_SUB_HALO) runs
+    of steps as equal as can be, in order."""
+    n = -(-H // MAX_SUB_HALO)
+    return [H // n + (q < H % n) for q in range(n)]
+
+
+@functools.lru_cache(maxsize=256)
+def chunk_geometry(lanes: int, h: int, B: int, sms: int) -> tuple:
+    """(warps a block, T owned lanes a block, tiles) of a launch that writes
+    `lanes` lanes after h steps. A warp issues its steps at the integer
+    pipe's rate and a scheduler with two warps takes about twice as long,
+    so the launch lasts as long as its busiest SM: the rule takes the warps
+    that give the busiest SM the fewest lanes, ceil(B x tiles / sms) blocks
+    of block_lanes(warps), and of those the fewest blocks (the fewest halo
+    lanes recomputed)."""
+    best = None
+    for w in range(1, CHUNK_MAX_WARPS + 1):
+        T = block_lanes(w) - h
+        if T < 1:
+            continue
+        tiles = -(-lanes // T)
+        key = (-(-B * tiles // sms) * block_lanes(w), tiles)
+        if best is None or key < best[0]:
+            best = key, (w, T, tiles)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _args(s: RankLanes):
     kernels.check_args(torch.int32, a_lane=s.a_lane, b=s.b, la=s.la, lb=s.lb, pp=s.pp,
                        p=s.p, out_pp=s.out_pp, out_p=s.out_p, result=s.result)
+    return (s.a_lane.data_ptr(), s.b.data_ptr(), s.b.stride(0), s.Mb, s.la.data_ptr(),
+            s.lb.data_ptr())
+
+
+def chunk(s: RankLanes, d0: int) -> None:
+    """One chunk of one rank: kernel `wavefront_chunk` on the card,
+    chunk_plain on the CPU. The same contract as chunk_plain. A chunk of
+    H <= MAX_SUB_HALO diagonals is one launch; a longer one runs the
+    launches of sub_steps(H) in turn, each from the last exact lane of the
+    one before (after h steps from exact lanes, lanes k >= h are exact),
+    through scratch buffers, the last into the out buffers."""
+    if s.a_lane.device.type == "cpu":
+        return chunk_plain(s, d0)
+    head = _args(s)
     B, W = s.a_lane.shape
-    kernels.launch(
-        "wavefront_chunk", "kgt_wavefront_chunk", s.a_lane.device,
-        s.a_lane.data_ptr(), s.b.data_ptr(), s.b.stride(0), s.Mb,
-        s.la.data_ptr(), s.lb.data_ptr(), s.pp.data_ptr(), s.p.data_ptr(),
-        s.out_pp.data_ptr(), s.out_p.data_ptr(), s.result.data_ptr(),
-        B, W, s.i0, s.Ma, d0, s.H,
-    )
+    dev = s.a_lane.device
+    src = (s.pp, s.p)
+    steps = sub_steps(s.H)
+    scratch = torch.empty((2, 2, B, W), dtype=torch.int32, device=dev) if len(steps) > 1 else None
+    k_first = 0
+    for q, h in enumerate(steps):
+        dst = (s.out_pp, s.out_p) if q == len(steps) - 1 else tuple(scratch[q % 2])
+        warps = chunk_geometry(W - k_first - h, h, B, _sm_count(dev.index))[0]
+        kernels.launch(
+            "wavefront_chunk", "kgt_wavefront_chunk", dev, *head,
+            src[0].data_ptr(), src[1].data_ptr(), dst[0].data_ptr(), dst[1].data_ptr(),
+            s.result.data_ptr(), B, W, s.i0, s.Ma, d0 + k_first, h, k_first, s.H, warps,
+        )
+        src, k_first = dst, k_first + h
 
 
 def run_chunk(s: RankLanes, c: int, step=chunk) -> RankLanes:
@@ -171,6 +238,59 @@ def run_chunk(s: RankLanes, c: int, step=chunk) -> RankLanes:
     lanes with the chunk's output as the next chunk's input."""
     step(s, 2 + c * s.H)
     return s._replace(pp=s.out_pp, p=s.out_p, out_pp=s.pp, out_p=s.p)
+
+
+def run_chunks_plain(s: RankLanes, c0: int, n: int) -> RankLanes:
+    """Chunks c0 .. c0 + n - 1 with nothing between them, chunk_plain one
+    after the other: the contract of run_chunks."""
+    for c in range(c0, c0 + n):
+        s = run_chunk(s, c, chunk_plain)
+    return s
+
+
+def one_launch_fits(s: RankLanes) -> bool:
+    """The rule of run_chunks on the card, from the geometry alone: a chunk
+    is one launch (H <= MAX_SUB_HALO) and the grid, B x tiles blocks of
+    chunk_geometry's warps, is no larger than the blocks the card holds at
+    once (blocks an SM at the kernel's registers and shared memory, times
+    the SMs). On the CPU, where run_chunks is run_chunks_plain, True."""
+    if s.a_lane.device.type == "cpu":
+        return True
+    if s.H > MAX_SUB_HALO:
+        return False
+    B, W = s.a_lane.shape
+    dev = s.a_lane.device
+    warps, _T, tiles = chunk_geometry(W - s.H, s.H, B, _sm_count(dev.index))
+    with torch.cuda.device(dev):
+        held = kernels.library().kgt_wavefront_chunks_blocks(warps, s.H)
+    return 0 < B * tiles <= held
+
+
+def run_chunks(s: RankLanes, c0: int, n: int) -> RankLanes:
+    """Chunks c0 .. c0 + n - 1 of rank lanes s with no exchange between
+    them: on the card one cooperative launch of kernel `wavefront_chunks`
+    (counted under that name), a grid barrier between two chunks and the
+    buffers swapped inside it; run_chunks_plain on the CPU. The state ends
+    where n run_chunk calls leave it. Raises unless one_launch_fits(s)."""
+    if s.a_lane.device.type == "cpu":
+        return run_chunks_plain(s, c0, n)
+    if n == 0:
+        return s
+    if not one_launch_fits(s):
+        raise ValueError(f"chunks of {s.H} diagonals of {tuple(s.a_lane.shape)} lanes do not "
+                         "fit one cooperative launch")
+    head = _args(s)
+    B, W = s.a_lane.shape
+    dev = s.a_lane.device
+    warps = chunk_geometry(W - s.H, s.H, B, _sm_count(dev.index))[0]
+    kernels.launch(
+        "wavefront_chunks", "kgt_wavefront_chunks", dev, *head,
+        s.pp.data_ptr(), s.p.data_ptr(), s.out_pp.data_ptr(), s.out_p.data_ptr(),
+        s.result.data_ptr(), B, W, s.i0, s.Ma, 2 + c0 * s.H, s.H, n, warps,
+    )
+    if n % 2:
+        s = s._replace(pp=s.out_pp, p=s.out_p, out_pp=s.pp, out_p=s.p)
+    return s
 
 
 def halo_lanes(s: RankLanes) -> torch.Tensor:
@@ -198,14 +318,18 @@ def sharded_levenshtein(seq_a, len_a, seq_b, len_b, mesh: Optional[SampleMesh] =
     seq_a (B, Ma), seq_b (B, Mb) integer codes, len_a, len_b the true
     lengths; the same on every rank. Returns (B,) int32 on every rank,
     equal to levenshtein_numpy. halo: the lanes each rank keeps to its
-    left, the diagonals a chunk runs between two exchanges (at most the
-    rank's lane count; on the card at most MAX_KERNEL_HALO)."""
+    left, the diagonals a chunk runs between two exchanges (any; a rank
+    runs min(halo, its lane count)). A world of one rank runs its chunks
+    in one launch where one_launch_fits, else a launch a chunk."""
     if mesh is None:
         mesh = SampleMesh.single()
     s = rank_lanes(seq_a, len_a, seq_b, len_b, mesh.rank, mesh.world_size, halo,
                    mesh.device)
-    for c in range(s.n_chunks):
-        s = run_chunk(s, c)
-        if mesh.world_size > 1:
-            refresh_halo(s, ring_shift(halo_lanes(s), mesh))
+    if mesh.world_size == 1 and one_launch_fits(s):
+        s = run_chunks(s, 0, s.n_chunks)
+    else:
+        for c in range(s.n_chunks):
+            s = run_chunk(s, c)
+            if mesh.world_size > 1:
+                refresh_halo(s, ring_shift(halo_lanes(s), mesh))
     return psum(s.result, mesh).cpu().numpy()

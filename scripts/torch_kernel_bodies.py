@@ -1,7 +1,8 @@
-"""The two bodies of kernels B1, B4 and B5 side by side, the walk kernel, and
-the first design of the MICA kernel beside the one the port runs.
+"""The two bodies of kernels B1, B4 and B5 side by side, the walk kernel, the
+first design of the MICA kernel beside the one the port runs, and the two
+designs of the chunk kernel of the sharded long-pair wavefront.
 
-    python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order]
+    python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order] [--chunk]
 
 Builds the kernels and prints the compiler's register and spill report.
 Then, on the card:
@@ -27,14 +28,26 @@ Then, on the card:
   4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
      bases at bands 31 to 255.
 
---quick stops after step 1. --mica-order then times the MICA kernel on
+  5. times the chunk kernel (csrc/sharded_wavefront.cu: kgt_wavefront_chunk,
+     4 lanes a thread, a warp exchange every 32 steps) in turns with its
+     first design (kgt_wavefront_chunk_lane, one lane a thread and a block
+     barrier a diagonal, reachable only from here: chunk_lane), both held
+     against chunk_plain, on the middle chunk (128 diagonals) of
+     chip_smoke.py's 32,768-base pair from the pair's real DP state; then
+     the new body at every count of warps a block (the table behind
+     chunk_geometry's rule) and the cooperative route (kgt_wavefront_chunks)
+     at 8 and 64 chunks a launch and over the whole pair.
+
+--quick stops after step 1; --chunk runs step 5 alone after it. --mica-order then times the MICA kernel on
 chip_smoke.py phase 3f's 8,192 rows as the port orders them (each tile's
 rows by length inside the block) and with all rows put in one order by
 length first, the alternative the design did not take, with each order's
 lane slots, shared memory and blocks an SM. --sass writes the machine code of the new bodies, of both
 MICA kernels (csrc/mica.cu; chip_smoke.py's MICA_MERGE_OPS counts the merge loop of
 mica_rows_kernel) and of B3 and the local kernel at one and two slots a lane
-(csrc/wavefront.cu), as cuobjdump prints it, to a sass_<kernel>.txt file each first.
+(csrc/wavefront.cu), and of both chunk kernels, as cuobjdump prints it, to a
+sass_<kernel>.txt file each first, with the instructions of the new chunk
+body's loop of 32 steps (128 cells a thread) counted.
 Needs a CUDA device.
 """
 
@@ -57,6 +70,9 @@ from kgl_gene_tpu_torch.ops.banded import (  # noqa: E402
 )
 from kgl_gene_tpu_torch.ops.myers import (  # noqa: E402
     MYERS_BANDS, myers_distance_padded, myers_kernel_body, myers_layout, myers_plain,
+)
+from kgl_gene_tpu_torch.ops.sharded_wavefront import (  # noqa: E402
+    CHUNK_EXCHANGE_STEPS, CHUNK_LANES_A_THREAD,
 )
 from kgl_gene_tpu_torch.ops.similarity import (  # noqa: E402
     ancestor_lists, id_order, mica, mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
@@ -87,6 +103,115 @@ def walk_pair_major(codes, la, lb, *, band_k, max_steps):
                    codes.stride(0), codes.stride(1), M, W, la.data_ptr(), lb.data_ptr(),
                    ops.data_ptr(), counts.data_ptr(), B, band_k, max_steps)
     return ops, counts
+
+
+def chunk_lane(s, d0):
+    """The chunk kernel's first design (kgt_wavefront_chunk_lane: a lane a
+    thread, one block barrier a diagonal, halos up to 512) on chunk's
+    arguments: the same contract as sharded_wavefront.chunk_plain, counted
+    as "wavefront_chunk_lane"."""
+    B, W = s.a_lane.shape
+    kernels.launch("wavefront_chunk_lane", "kgt_wavefront_chunk_lane", s.a_lane.device,
+                   s.a_lane.data_ptr(), s.b.data_ptr(), s.b.stride(0), s.Mb, s.la.data_ptr(),
+                   s.lb.data_ptr(), s.pp.data_ptr(), s.p.data_ptr(), s.out_pp.data_ptr(),
+                   s.out_p.data_ptr(), s.result.data_ptr(), B, W, s.i0, s.Ma, d0, s.H)
+
+
+def chunk_state(dev, halo=128):
+    """chip_smoke.py's 32,768-base pair at world 1, its chunks run up to the
+    middle one: (rank lanes, d0 of the middle chunk, its index)."""
+    from chip_smoke import MULTI_LONG, MULTI_LONG_EDITS, SEED, long_pair
+
+    from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+
+    pair = long_pair(np.random.default_rng(SEED + 6), MULTI_LONG[0], *MULTI_LONG_EDITS)
+    s = sw.rank_lanes(*pair, 0, 1, halo, dev)
+    c = s.n_chunks // 2
+    return sw.run_chunks(s, 0, c), 2 + c * s.H, c, pair
+
+
+def time_chunk(dev):
+    """Step 5: the chunk kernel's two designs in turns, the warps a block,
+    the cooperative route."""
+    from chip_smoke import time_device
+
+    from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
+
+    s, d0, c, pair = chunk_state(dev)
+    B, W = s.a_lane.shape
+    outs = {name: s._replace(out_pp=s.out_pp.clone(), out_p=s.out_p.clone(),
+                             result=s.result.clone())
+            for name in ("new", "lane", "plain")}
+    bodies = {"new": lambda: sw.chunk(outs["new"], d0), "lane": lambda: chunk_lane(outs["lane"], d0)}
+    sw.chunk_plain(outs["plain"], d0)
+    for name, body in bodies.items():
+        body()
+        for key in ("out_p", "out_pp"):
+            if not torch.equal(getattr(outs[name], key)[:, s.H:],
+                               getattr(outs["plain"], key)[:, s.H:]):
+                raise AssertionError(f"the chunk kernel's {name} body differs from chunk_plain")
+    cells = sum(min(d, s.Ma) - max(0, d - s.Mb) + 1 for d in range(d0, d0 + s.H))
+    print(f"chunk {c} of {s.n_chunks} of the {s.Ma}-base pair (H={s.H}, {W - s.H} lanes, "
+          f"{cells} cells): both bodies equal to chunk_plain", flush=True)
+    turns = {name: [] for name in bodies}
+    for _ in range(3):
+        for name in ("new", "lane", "lane", "new"):
+            turns[name].append(time_device([bodies[name]], 20, windows=3))
+    for name, ms in turns.items():
+        print(f"  {name} body device ms: {' / '.join(f'{x:.6f}' for x in ms)}", flush=True)
+    rule = sw.chunk_geometry(W - s.H, s.H, B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    row = []
+    for warps in range(1, 13):
+        if sw.block_lanes(warps) <= s.H:
+            continue
+        o = outs["new"]
+        ms = time_device([lambda warps=warps: kernels.launch(
+            "wavefront_chunk", "kgt_wavefront_chunk", dev, s.a_lane.data_ptr(), s.b.data_ptr(),
+            s.b.stride(0), s.Mb, s.la.data_ptr(), s.lb.data_ptr(), s.pp.data_ptr(),
+            s.p.data_ptr(), o.out_pp.data_ptr(), o.out_p.data_ptr(), o.result.data_ptr(), B, W,
+            s.i0, s.Ma, d0, s.H, 0, s.H, warps)], 20, windows=3)
+        T = sw.block_lanes(warps) - s.H
+        row.append(f"{warps}: {ms:.6f} ({-(-(W - s.H) // T)} tiles)")
+    print(f"  new body by warps a block (rule: {rule}): " + ", ".join(row), flush=True)
+    for n in (8, 64):
+        o = outs["new"]
+        ms = time_device([lambda n=n: kernels.launch(
+            "wavefront_chunks", "kgt_wavefront_chunks", dev, s.a_lane.data_ptr(), s.b.data_ptr(),
+            s.b.stride(0), s.Mb, s.la.data_ptr(), s.lb.data_ptr(), s.pp.data_ptr(), s.p.data_ptr(),
+            o.out_pp.data_ptr(), o.out_p.data_ptr(), o.result.data_ptr(), B, W, s.i0, s.Ma, d0,
+            s.H, n, rule[0])], 3, windows=3)
+        print(f"  cooperative launch of {n} chunks: {ms:.6f} ms on the device, "
+              f"{ms / n:.6f} a chunk", flush=True)
+    for _ in range(3):
+        t = sw.rank_lanes(*pair, 0, 1, s.H, dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t = sw.run_chunks(t, 0, t.n_chunks)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"  the whole pair in one launch ({t.n_chunks} chunks): "
+              f"{start.elapsed_time(end):.4f} ms, distance {t.result.tolist()}", flush=True)
+
+
+def loop_counts(sass):
+    """(instructions, SHFL) of the period loop of `sass`, the chunk kernel's
+    cuobjdump text: of the bodies between a backward branch and its target,
+    the one with the most SHFL (a shuffle a step), and of those the
+    shortest (the body without the capture)."""
+    import re
+
+    ops = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", sass)]
+    best = None
+    for addr, op in ops:
+        m = re.search(rf"/\*{addr:04x}\*/[^\n]*BRA[^\n]*?0x([0-9a-f]+)", sass)
+        if op != "BRA" or not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [o for a, o in ops if int(m.group(1), 16) <= a <= addr]
+        key = (-sum(o.startswith("SHFL") for o in body), len(body))
+        best = key if best is None or key < best else best
+    return (best[1], -best[0]) if best else (0, 0)
 
 
 def mica_first_design(ids, ic):
@@ -301,11 +426,18 @@ def dump_sass():
                     "banded_warp_kernelILi8ELb0E", "walk_kernel", "walk_pair_major_kernel",
                     "mica_kernelILi16E",
                     "mica_rows_kernel", "bitvector_kernelILi1ELb0E", "bitvector_kernelILi1ELb1E",
-                    "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E"):
+                    "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E",
+                    "wavefront_chunk_kernel", "wavefront_chunks_kernel",
+                    "wavefront_chunk_lane_kernel"):
             if key in name:
                 with open(os.path.join(out_dir, f"sass_{key}.txt"), "w") as f:
                     f.write(chunk)
                 print(f"  SASS of {key}: {chunk.count(chr(10)) // 2} lines")
+                if key == "wavefront_chunk_kernel":
+                    n, shfl = loop_counts(chunk)
+                    cells = CHUNK_EXCHANGE_STEPS * CHUNK_LANES_A_THREAD
+                    print(f"    its loop of {CHUNK_EXCHANGE_STEPS} steps ({cells} cells a "
+                          f"thread): {n} instructions, {shfl} SHFL, {n / cells:.2f} a cell")
 
 
 def main() -> int:
@@ -321,14 +453,18 @@ def main() -> int:
             print("  " + line.strip())
     if "--sass" in sys.argv:
         dump_sass()
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     check(dev)
+    if "--chunk" in sys.argv:
+        time_chunk(dev)
+        return 0
     if "--mica-order" in sys.argv:
         time_mica_order(dev)
     if "--quick" not in sys.argv:
         time_myers(dev)
         time_choices_and_walk(dev)
         time_banded(dev)
+        time_chunk(dev)
     return 0
 
 
