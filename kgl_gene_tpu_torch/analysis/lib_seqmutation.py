@@ -64,6 +64,7 @@ from ..parallel.host_pipeline import WorkflowThreads
 from ..sequence.alphabet import DNA5, AminoAcid
 from ..sequence.sequence import StrandSense
 from ..sequence.tables import amino_translation_table
+from ..tracing import span
 from ..variant.db import PopulationDB
 
 __all__ = ["MutateGenes", "MutateStats", "TranscriptFamilyAnalysis", "TranscriptMutateRecord"]
@@ -508,24 +509,25 @@ class MutateGenes:
         timings.setdefault("n_device_fetches", 0)
         launches = timings.setdefault("launches", {})
         t0 = time.perf_counter()
-        contig_id = self.contig_ref.contig_id
-        preps = []
-        steps = []  # (prep_index, which, transcript, batch)
-        for transcript in transcripts:
-            dev = use_device and transcript.coding_nucleotides() >= 3
-            snp_batch, indel_batch, empty_ids, host_ids = self._capture(
-                population, transcript, dev
-            )
-            stats = MutateStats()
-            stats.total_genomes = population.genome_count()
-            i = len(preps)
-            if snp_batch is not None and snp_batch.genome_ids:
-                steps.append((i, "snp", transcript, snp_batch))
-            if indel_batch is not None and indel_batch.genome_ids:
-                steps.append((i, "indel", transcript, indel_batch))
-            preps.append(
-                (transcript, snp_batch, indel_batch, empty_ids, host_ids, stats)
-            )
+        with span("kgt.mutate.capture"):
+            contig_id = self.contig_ref.contig_id
+            preps = []
+            steps = []  # (prep_index, which, transcript, batch)
+            for transcript in transcripts:
+                dev = use_device and transcript.coding_nucleotides() >= 3
+                snp_batch, indel_batch, empty_ids, host_ids = self._capture(
+                    population, transcript, dev
+                )
+                stats = MutateStats()
+                stats.total_genomes = population.genome_count()
+                i = len(preps)
+                if snp_batch is not None and snp_batch.genome_ids:
+                    steps.append((i, "snp", transcript, snp_batch))
+                if indel_batch is not None and indel_batch.genome_ids:
+                    steps.append((i, "indel", transcript, indel_batch))
+                preps.append(
+                    (transcript, snp_batch, indel_batch, empty_ids, host_ids, stats)
+                )
         timings["capture_s"] += time.perf_counter() - t0
 
         # ONE pooled program for every step, ONE fetch (see _pooled_program).
@@ -533,39 +535,41 @@ class MutateGenes:
         fetched: Dict[Tuple[int, str], np.ndarray] = {}
         recon: Dict[int, np.ndarray] = {}
         if steps:
-            specs, flat_inputs, widths = [], [], []
-            for _i, which, tx, b in steps:
-                if which == "snp":
-                    specs.append(("snp", tx.transcript_id, tx.start, tx.end))
-                    flat_inputs += [b.positions, b.alt_codes, b.valid]
-                    widths.append(8)  # tail-only: strings rebuild host-side
-                else:
-                    K, A = b.pos.shape[1], b.ins_codes.shape[2]
-                    pad_c = pad_coding_for(K * A)
-                    specs.append(("indel", tx.transcript_id, tx.start, tx.end,
-                                  pad_c, indel_band_for(b.edit_bound), INDEL_TAIL_ONLY))
-                    flat_inputs += [b.pos, b.kind, b.del_len, b.ins_codes,
-                                    b.ins_len, b.alt_code, b.valid]
-                    if INDEL_TAIL_ONLY:
-                        widths.append(8)
+            with span("kgt.mutate.dispatch"):
+                specs, flat_inputs, widths = [], [], []
+                for _i, which, tx, b in steps:
+                    if which == "snp":
+                        specs.append(("snp", tx.transcript_id, tx.start, tx.end))
+                        flat_inputs += [b.positions, b.alt_codes, b.valid]
+                        widths.append(8)  # tail-only: strings rebuild host-side
                     else:
-                        s_pad = ((tx.coding_nucleotides() + pad_c + 2) // 3) * 3
-                        widths.append(s_pad // 3 + 8)
-            program = self._pooled_program(tuple(specs), [tx for _i, _w, tx, _b in steps])
-            handle = program(flat_inputs, launches)
+                        K, A = b.pos.shape[1], b.ins_codes.shape[2]
+                        pad_c = pad_coding_for(K * A)
+                        specs.append(("indel", tx.transcript_id, tx.start, tx.end,
+                                      pad_c, indel_band_for(b.edit_bound), INDEL_TAIL_ONLY))
+                        flat_inputs += [b.pos, b.kind, b.del_len, b.ins_codes,
+                                        b.ins_len, b.alt_code, b.valid]
+                        if INDEL_TAIL_ONLY:
+                            widths.append(8)
+                        else:
+                            s_pad = ((tx.coding_nucleotides() + pad_c + 2) // 3) * 3
+                            widths.append(s_pad // 3 + 8)
+                program = self._pooled_program(tuple(specs), [tx for _i, _w, tx, _b in steps])
+                handle = program(flat_inputs, launches)
             t1 = time.perf_counter()
             timings["dispatch_s"] += t1 - t0
-            # Tail-only indel steps: start the coding-string replay on host
-            # threads now, so it runs while the fetch below waits.
-            recon_jobs = [(i, tx, b) for i, which, tx, b in steps
-                          if which == "indel" and INDEL_TAIL_ONLY]
-            rpool = None
-            futs = {}
-            if recon_jobs:
-                rpool = WorkflowThreads(WorkflowThreads.default_threads(len(recon_jobs)))
-                futs = {i: rpool.enqueue_future(self._reconstruct_indel_codes, b, tx)
-                        for i, tx, b in recon_jobs}
-            fused = handle.cpu().numpy()
+            with span("kgt.mutate.fetch"):
+                # Tail-only indel steps: start the coding-string replay on host
+                # threads now, so it runs while the fetch below waits.
+                recon_jobs = [(i, tx, b) for i, which, tx, b in steps
+                              if which == "indel" and INDEL_TAIL_ONLY]
+                rpool = None
+                futs = {}
+                if recon_jobs:
+                    rpool = WorkflowThreads(WorkflowThreads.default_threads(len(recon_jobs)))
+                    futs = {i: rpool.enqueue_future(self._reconstruct_indel_codes, b, tx)
+                            for i, tx, b in recon_jobs}
+                fused = handle.cpu().numpy()
             timings["fetch_s"] += time.perf_counter() - t1
             timings["n_device_fetches"] += 1
             recon = {i: f.result() for i, f in futs.items()}
@@ -580,57 +584,58 @@ class MutateGenes:
             timings["dispatch_s"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        # One pool shared by every transcript's host-exact batch (the
-        # reference's thread-per-genome pool, kga_analysis_lib_seqmutation.
-        # cpp:116-140), started on the first transcript that needs it.
-        pool = None
-        results = []
-        for i, (transcript, snp_batch, indel_batch, empty_ids, host_ids,
-                stats) in enumerate(preps):
-            by_id: Dict[str, TranscriptMutateRecord] = {}
-            reference_coding = self.contig_ref.coding_sequence(transcript).to_string()
-            ref_validity = self.contig_ref.check_valid_transcript(transcript)
-            for genome_id in empty_ids:
-                by_id[genome_id] = TranscriptMutateRecord(
-                    genome_id, transcript.gene.feature_id,
-                    transcript.transcript_id, 0, reference_coding, ref_validity,
-                )
-            if len(host_ids) >= 8:
-                # Each task gets a private MutateStats, reduced below.
-                if pool is None:
-                    pool = WorkflowThreads(WorkflowThreads.default_threads(len(host_ids)))
-                futures = []
-                for genome_id in host_ids:
-                    contig_db = population.get_genome(genome_id).get_contig(contig_id)
-                    local = MutateStats()
-                    futures.append((genome_id, local, pool.enqueue_future(
-                        self._host_mutate, genome_id, contig_db, transcript, local,
-                    )))
-                for genome_id, local, fut in futures:
-                    by_id[genome_id] = fut.result()
-                    for f in _STAT_FIELDS:
-                        setattr(stats, f, getattr(stats, f) + getattr(local, f))
-            else:
-                for genome_id in host_ids:
-                    contig_db = population.get_genome(genome_id).get_contig(contig_id)
-                    by_id[genome_id] = self._host_mutate(
-                        genome_id, contig_db, transcript, stats
+        with span("kgt.mutate.unpack"):
+            # One pool shared by every transcript's host-exact batch (the
+            # reference's thread-per-genome pool, kga_analysis_lib_seqmutation.
+            # cpp:116-140), started on the first transcript that needs it.
+            pool = None
+            results = []
+            for i, (transcript, snp_batch, indel_batch, empty_ids, host_ids,
+                    stats) in enumerate(preps):
+                by_id: Dict[str, TranscriptMutateRecord] = {}
+                reference_coding = self.contig_ref.coding_sequence(transcript).to_string()
+                ref_validity = self.contig_ref.check_valid_transcript(transcript)
+                for genome_id in empty_ids:
+                    by_id[genome_id] = TranscriptMutateRecord(
+                        genome_id, transcript.gene.feature_id,
+                        transcript.transcript_id, 0, reference_coding, ref_validity,
                     )
-            if (i, "snp") in fetched:
-                for rec in self._device_collect(
-                    fetched[(i, "snp")], snp_batch, transcript,
-                    transcript.coding_nucleotides(), stats,
-                ):
-                    by_id[rec.genome_id] = rec
-            if (i, "indel") in fetched:
-                for rec in self._device_collect_indel(
-                    fetched[(i, "indel")], indel_batch, transcript, stats,
-                    recon=recon.get(i),
-                ):
-                    by_id[rec.genome_id] = rec
-            results.append(([by_id[g] for g in sorted(by_id)], stats))
-        if pool is not None:
-            pool.shutdown()
+                if len(host_ids) >= 8:
+                    # Each task gets a private MutateStats, reduced below.
+                    if pool is None:
+                        pool = WorkflowThreads(WorkflowThreads.default_threads(len(host_ids)))
+                    futures = []
+                    for genome_id in host_ids:
+                        contig_db = population.get_genome(genome_id).get_contig(contig_id)
+                        local = MutateStats()
+                        futures.append((genome_id, local, pool.enqueue_future(
+                            self._host_mutate, genome_id, contig_db, transcript, local,
+                        )))
+                    for genome_id, local, fut in futures:
+                        by_id[genome_id] = fut.result()
+                        for f in _STAT_FIELDS:
+                            setattr(stats, f, getattr(stats, f) + getattr(local, f))
+                else:
+                    for genome_id in host_ids:
+                        contig_db = population.get_genome(genome_id).get_contig(contig_id)
+                        by_id[genome_id] = self._host_mutate(
+                            genome_id, contig_db, transcript, stats
+                        )
+                if (i, "snp") in fetched:
+                    for rec in self._device_collect(
+                        fetched[(i, "snp")], snp_batch, transcript,
+                        transcript.coding_nucleotides(), stats,
+                    ):
+                        by_id[rec.genome_id] = rec
+                if (i, "indel") in fetched:
+                    for rec in self._device_collect_indel(
+                        fetched[(i, "indel")], indel_batch, transcript, stats,
+                        recon=recon.get(i),
+                    ):
+                        by_id[rec.genome_id] = rec
+                results.append(([by_id[g] for g in sorted(by_id)], stats))
+            if pool is not None:
+                pool.shutdown()
         timings["unpack_s"] += time.perf_counter() - t0
         return results
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..tracing import span
 
 __all__ = [
     "PAIR_GATHER_BYTES",
@@ -130,16 +131,21 @@ def gathered_pairs(distance, seqs, lens, iu, ju) -> np.ndarray:
     dev = seqs.device
     seqs = seqs.to(torch.int32).contiguous()
     lens = lens.to(torch.int32)
-    iu = torch.as_tensor(np.asarray(iu, dtype=np.int64), device=dev)
-    ju = torch.as_tensor(np.asarray(ju, dtype=np.int64), device=dev)
+    with span("kgt.pairs.upload"):
+        iu = torch.as_tensor(np.asarray(iu, dtype=np.int64), device=dev)
+        ju = torch.as_tensor(np.asarray(ju, dtype=np.int64), device=dev)
     per_pair = 2 * seqs.element_size() * max(seqs.shape[1], 1)
     step = max(1, PAIR_GATHER_BYTES // per_pair)
     parts = []
     for lo in range(0, iu.shape[0], step):
-        i, j = iu[lo : lo + step], ju[lo : lo + step]
-        parts.append(distance(seqs.index_select(0, i), lens.index_select(0, i),
-                              seqs.index_select(0, j), lens.index_select(0, j)))
-    return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
+        with span("kgt.pairs.gather"):
+            i, j = iu[lo : lo + step], ju[lo : lo + step]
+            rows = (seqs.index_select(0, i), lens.index_select(0, i),
+                    seqs.index_select(0, j), lens.index_select(0, j))
+        with span("kgt.pairs.distance"):
+            parts.append(distance(*rows))
+    with span("kgt.pairs.fetch"):
+        return torch.cat(parts).cpu().numpy() if parts else np.zeros(0, np.int32)
 
 
 def batched_levenshtein(seq_a, len_a, seq_b, len_b) -> torch.Tensor:

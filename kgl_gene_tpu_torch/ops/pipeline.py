@@ -40,6 +40,7 @@ from .. import resolve_device
 from ..parallel.dist import SampleMesh, psum
 from ..sequence.alphabet import DNA5, AminoAcid
 from ..sequence.tables import amino_translation_table
+from ..tracing import span
 from .myers import myers_band_for, myers_distance_padded
 from .variant_apply import apply_snp_batch, complement_codes, translate_batch_kernel
 from .wavefront import batched_levenshtein_kernel
@@ -96,39 +97,43 @@ def forward(
     stop_code: int,
     start_codes: torch.Tensor,     # amino codes acceptable at position 0
 ) -> ForwardOutputs:
-    mutated = apply_snp_batch(region, positions, alt_codes, valid)
-    coding = _splice_slices(mutated, exon_starts, exon_lens)
-    ref_coding = _splice_slices(region[None, :], exon_starts, exon_lens)
-    if reverse_strand:
-        coding = complement_codes(torch.flip(coding, [1]))
-        ref_coding = complement_codes(torch.flip(ref_coding, [1]))
-    coding = coding.contiguous()
-    amino = translate_batch_kernel(coding, amino_lut)
+    with span("kgt.step.apply"):
+        mutated = apply_snp_batch(region, positions, alt_codes, valid)
+        coding = _splice_slices(mutated, exon_starts, exon_lens)
+        ref_coding = _splice_slices(region[None, :], exon_starts, exon_lens)
+        if reverse_strand:
+            coding = complement_codes(torch.flip(coding, [1]))
+            ref_coding = complement_codes(torch.flip(ref_coding, [1]))
+        coding = coding.contiguous()
+    with span("kgt.step.translate"):
+        amino = translate_batch_kernel(coding, amino_lut)
 
-    B, S = coding.shape
-    lens = torch.full((B,), S, dtype=torch.int32, device=coding.device)
-    a = coding.to(torch.int32)
-    b = ref_coding.to(torch.int32).contiguous()
-    # Every variant is a substitution, so Levenshtein <= Hamming <= K and
-    # the lengths are equal: a band >= K provably holds the distance.
-    band_k = myers_band_for(positions.shape[1], max_band=127)
-    if band_k and S >= MIN_BANDED_LEN:
-        distance = myers_distance_padded(a, lens, b, lens, band_k=band_k)
-    else:
-        distance = batched_levenshtein_kernel(a, lens, b, lens)
+    with span("kgt.step.distance"):
+        B, S = coding.shape
+        lens = torch.full((B,), S, dtype=torch.int32, device=coding.device)
+        a = coding.to(torch.int32)
+        b = ref_coding.to(torch.int32).contiguous()
+        # Every variant is a substitution, so Levenshtein <= Hamming <= K and
+        # the lengths are equal: a band >= K provably holds the distance.
+        band_k = myers_band_for(positions.shape[1], max_band=127)
+        if band_k and S >= MIN_BANDED_LEN:
+            distance = myers_distance_padded(a, lens, b, lens, band_k=band_k)
+        else:
+            distance = batched_levenshtein_kernel(a, lens, b, lens)
 
-    # Validity: starts with a start amino, ends with stop, no internal stop.
-    starts_ok = torch.isin(amino[:, 0], start_codes)
-    ends_ok = amino[:, -1] == stop_code
-    internal_stops = (amino[:, :-1] == stop_code).sum(1)
-    valid_protein = starts_ok & ends_ok & (internal_stops == 0)
-    # 0 VALID_PROTEIN, 1 NO_STOP_CODON, 2 NONSENSE_MUTATION, 3 NO_START_CODON,
-    # the highest applicable code winning.
-    validity_code = torch.maximum(
-        torch.maximum((~ends_ok).to(torch.int32), 2 * (internal_stops > 0).to(torch.int32)),
-        3 * (~starts_ok).to(torch.int32),
-    )
-    allele_counts = valid.to(torch.int32).sum(0, dtype=torch.int32)
+    with span("kgt.step.checks"):
+        # Validity: starts with a start amino, ends with stop, no internal stop.
+        starts_ok = torch.isin(amino[:, 0], start_codes)
+        ends_ok = amino[:, -1] == stop_code
+        internal_stops = (amino[:, :-1] == stop_code).sum(1)
+        valid_protein = starts_ok & ends_ok & (internal_stops == 0)
+        # 0 VALID_PROTEIN, 1 NO_STOP_CODON, 2 NONSENSE_MUTATION, 3 NO_START_CODON,
+        # the highest applicable code winning.
+        validity_code = torch.maximum(
+            torch.maximum((~ends_ok).to(torch.int32), 2 * (internal_stops > 0).to(torch.int32)),
+            3 * (~starts_ok).to(torch.int32),
+        )
+        allele_counts = valid.to(torch.int32).sum(0, dtype=torch.int32)
     return ForwardOutputs(
         mutated_coding=coding, amino=amino, distance=distance,
         allele_counts=allele_counts, valid_protein=valid_protein,
@@ -159,13 +164,13 @@ def make_forward_step(
     start_codes = torch.as_tensor(table.start_codes(), dtype=torch.uint8, device=dev)
 
     def step(positions, alt_codes, valid) -> ForwardOutputs:
-        return forward(
-            region, exon_starts, exon_lens, reverse_strand,
-            torch.as_tensor(positions, device=dev),
-            torch.as_tensor(alt_codes, device=dev),
-            torch.as_tensor(valid, device=dev),
-            amino_lut, AminoAcid.STOP, start_codes,
-        )
+        with span("kgt.step"):
+            with span("kgt.step.upload"):
+                positions = torch.as_tensor(positions, device=dev)
+                alt_codes = torch.as_tensor(alt_codes, device=dev)
+                valid = torch.as_tensor(valid, device=dev)
+            return forward(region, exon_starts, exon_lens, reverse_strand, positions,
+                           alt_codes, valid, amino_lut, AminoAcid.STOP, start_codes)
 
     return step
 

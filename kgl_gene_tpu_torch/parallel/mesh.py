@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from ..stats.inbreeding import _MIN_RITLAND_FREQ, run_estimator
+from ..tracing import span
 from .dist import SampleMesh, gather_rows, psum
 
 __all__ = [
@@ -309,28 +310,38 @@ def sharded_pairwise_distances(seqs: np.ndarray, lens: np.ndarray, mesh,
     seqs = np.asarray(seqs)
     lens = np.asarray(lens, dtype=np.int32)
     n = seqs.shape[0]
-    iu, ju = np.triu_indices(n, k=1)
-    n_pairs = len(iu)
-    mine = _rank_rows(np.stack([iu, ju], axis=1), mesh)
-    pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=mesh.device)
-    pool_lens = torch.as_tensor(lens, device=mesh.device)
-    if band_k is not None:
-        band_k = myers_band_for(band_k) or 511
-        local = myers_pairs_device(pool, pool_lens, mine[:, 0], mine[:, 1], band_k=band_k)
-    else:
-        local = gathered_pairs(batched_levenshtein_kernel, pool, pool_lens,
-                               mine[:, 0], mine[:, 1])
-    if mesh.group is not None:  # one rank alone holds every pair already
-        local = gather_rows(torch.as_tensor(local, device=mesh.device), mesh).cpu().numpy()
-    distances = local[:n_pairs].astype(np.int64)
-    if band_k is not None:
-        ok = (distances <= band_k) & (np.abs(lens[iu] - lens[ju]) <= band_k)
-        pending = np.nonzero(~ok)[0]
+    with span("kgt.pairs"):
+        with span("kgt.pairs.index"):
+            iu, ju = np.triu_indices(n, k=1)
+            n_pairs = len(iu)
+            mine = _rank_rows(np.stack([iu, ju], axis=1), mesh)
+        with span("kgt.pairs.upload"):
+            pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=mesh.device)
+            pool_lens = torch.as_tensor(lens, device=mesh.device)
+        if band_k is not None:
+            band_k = myers_band_for(band_k) or 511
+            local = myers_pairs_device(pool, pool_lens, mine[:, 0], mine[:, 1], band_k=band_k)
+        else:
+            local = gathered_pairs(batched_levenshtein_kernel, pool, pool_lens,
+                                   mine[:, 0], mine[:, 1])
+        if mesh.group is not None:  # one rank alone holds every pair already
+            with span("kgt.pairs.gather_ranks"):
+                local = gather_rows(torch.as_tensor(local, device=mesh.device),
+                                    mesh).cpu().numpy()
+        with span("kgt.pairs.assemble"):
+            distances = local[:n_pairs].astype(np.int64)
+            pending = np.zeros(0, dtype=np.int64)
+            if band_k is not None:
+                ok = (distances <= band_k) & (np.abs(lens[iu] - lens[ju]) <= band_k)
+                pending = np.nonzero(~ok)[0]
+            out = np.zeros((n, n), dtype=np.float64)
+            out[iu, ju] = distances
+            out[ju, iu] = distances
         if pending.size:
-            bi, bj = iu[pending], ju[pending]
-            distances[pending] = _rerun_overflow_pairs(
-                seqs[bi], lens[bi], seqs[bj], lens[bj], band_k, mesh.device)
-    out = np.zeros((n, n), dtype=np.float64)
-    out[iu, ju] = distances
-    out[ju, iu] = distances
+            with span("kgt.pairs.rerun"):
+                bi, bj = iu[pending], ju[pending]
+                exact = _rerun_overflow_pairs(seqs[bi], lens[bi], seqs[bj], lens[bj], band_k,
+                                              mesh.device)
+                out[bi, bj] = exact
+                out[bj, bi] = exact
     return out

@@ -1,0 +1,38 @@
+"""Spans of the port's stages, for a profiler's trace.
+
+span(name) is torch.profiler.record_function(name) while a profiler
+records: the range lands in the profiler's trace on the clock of the
+card's events, so a stretch in which the card sat idle can be put down to
+the stage the host was in, and the kernels a stage launched to that stage.
+A span's parent is the span that encloses it on the same thread. With no
+profiler recording, span(name) returns one shared null context: a stage
+pays one check of the profiler's state and allocates nothing.
+
+Names start with `kgt.`, the prefix of the port's C entry points:
+  kgt.step (.upload, .apply, .translate, .distance, .checks): the forward
+      step (ops/pipeline.py);
+  kgt.pairs (.index, .upload, .gather, .distance, .fetch, .gather_ranks,
+      .rerun, .assemble): the all-pairs matrix (parallel/mesh.py
+      sharded_pairwise_distances, ops/edit_distance.py gathered_pairs);
+  kgt.mutate (.capture, .dispatch, .fetch, .unpack): the product pass
+      (analysis/lib_seqmutation.py MutateGenes.mutate_transcripts).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+from torch.profiler import record_function
+
+__all__ = ["span"]
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over one stage: a profiler range named `name`
+    while a profiler records, else the shared null context."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF

@@ -127,6 +127,24 @@ def test_synthetic_device_route_matches_host_route(synthetic):
         assert d_stats == h_stats
 
 
+def test_synthetic_pass_records_a_span_at_each_clocked_stage(synthetic):
+    """Under a profiler the pass records kgt.mutate.capture, .dispatch,
+    .fetch and .unpack, once each and in that order, beside its timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _snp_only, s = synthetic
+    tc, tpop, ttxs, tinfo = s["t"]
+    timings = {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t_lsm.MutateGenes(tc, info_store=tinfo, device="cpu").mutate_transcripts(
+            tpop, ttxs, timings=timings)
+    stages = sorted((ev.start_ns(), ev.name()) for ev in prof.profiler.kineto_results.events()
+                    if ev.is_user_annotation() and ev.name().startswith("kgt.mutate."))
+    assert [name for _t, name in stages] == [f"kgt.mutate.{s}" for s in
+                                             ("capture", "dispatch", "fetch", "unpack")]
+    assert timings["n_device_fetches"] == 1 and timings["fetch_s"] > 0
+
+
 # --------------------------------------------------------------------------- #
 # fixture genes with SNP / insertion / deletion populations
 # --------------------------------------------------------------------------- #
