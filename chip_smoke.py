@@ -202,9 +202,10 @@ sizes, checks and the MICA kernel's times and bounds), one
 {"checkpoint_local": {...}} (phase 3g's seconds and checks), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
 one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
-{"kernels": [...]} of twelve rows (`local` at B = 256 against the shared
-reference and
-`local_pool` over the 32,640 pairs are the local kernel's; the rows of
+{"kernels": [...]} of fourteen rows (`local` at B = 256 against the shared
+reference and `local_pool` over the 32,640 pairs, each at 3,000 and at
+2,181 bases with the layout the rule took in `geometry`, are the local
+kernel's; the rows of
 B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
@@ -243,6 +244,7 @@ SEED = 0
 REGION_LEN = 4800
 EXONS = np.array([[400, 1900], [2400, 3900]], dtype=np.int64)  # 3,000 coding bases
 S = 3000
+LOCAL_GENE_BASES = 2181  # kelch13's coding bases: the local rows' second width
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # H100 SXM peak rates list no int32 rate outside the tensor cores; the
 # float32 rate (67 T/s) stands in, which makes every bound of an integer
@@ -1000,24 +1002,38 @@ def local_kernel_cases(dev, errs):
     lq == lt, codes negative and >= 32, pads past lt that copy the query,
     the 64-row block edges, the 2,048-row slot edge, queries of one and
     several 4,096-row stripes up to 5,000 rows, dynamic shared memory
-    above 48 KB, and empty widths and batches."""
+    above 48 KB, and empty widths and batches; every case in the layout the
+    rule takes and again in each group layout that holds its widths in one
+    stripe. Then a kelch13-sized family's 32,640 pairs of 2,181 bases (the
+    rule's group layout) and 2,053 pairs of mixed lengths at that width,
+    against both plain versions."""
     import torch
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein_local
-    from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel, bitvector_local_plain
+    from kgl_gene_tpu_torch.ops.local import (
+        LOCAL_LAYOUTS, batched_levenshtein_local_kernel, bitvector_local_plain, local_layout,
+    )
 
     rng = np.random.default_rng(SEED + 11)
 
     def held(name, a, la, b, lb, cell=True):
         args = [torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=dev)
                 for x in (a, la, b, lb)]
+        B, Wp = args[0].shape[0], min(args[0].shape[1], args[2].shape[1])
+        want = bitvector_local_plain(*args)
         got = batched_levenshtein_local_kernel(*args)
+        rule = local_layout(B, args[0].shape[1], args[2].shape[1])
         errs["local"] = max(errs["local"], exact(
-            f"local {name} vs the word-level plain version", got, bitvector_local_plain(*args)))
+            f"local {name}, layout {rule} (the rule's) vs the word-level plain version", got, want))
         if cell:
             errs["local"] = max(errs["local"], exact(
                 f"local {name} vs the cell-level plain version", got,
                 batched_levenshtein_local(*args)))
+        for G, K in LOCAL_LAYOUTS:
+            if G < 32 and G * K * 64 >= Wp and (G, K) != rule:
+                errs["local"] = max(errs["local"], exact(
+                    f"local {name}, layout {(G, K)} vs the word-level plain version",
+                    batched_levenshtein_local_kernel(*args, _layout=(G, K)), want))
 
     B, Ma, Mb = 64, 300, 330
     a = rng.integers(0, 41, (B, Ma)).astype(np.int32)
@@ -1076,7 +1092,40 @@ def local_kernel_cases(dev, errs):
     for name, rows, wa, wb in (("Ma = 0", 3, 0, 7), ("Mb = 0", 3, 7, 0), ("B = 0", 0, 7, 7)):
         held(name, rng.integers(0, 4, (rows, wa)), np.full(rows, wa), rng.integers(0, 4, (rows, wb)),
              np.full(rows, wb))
-    torch.cuda.synchronize()
+    # Warps of mixed lengths at kelch13's width: lengths 0 to 2,181 (empty
+    # queries, one-row queries, pairs that end long before their warp's
+    # longest), 2,053 pairs (the last warp part full), both orders.
+    W = LOCAL_GENE_BASES
+    lengths = [(int(x), int(y)) for x, y in rng.integers(0, W + 1, (2053, 2))]
+    lengths[:6] = [(0, W), (W, W), (1, W), (W, 0), (W // 7, W // 4), (W, 1)]
+    a, la, b, lb = local_pair_set(rng, lengths)
+    a, b = np.pad(a, ((0, 0), (0, W - a.shape[1]))), np.pad(b, ((0, 0), (0, W - b.shape[1])))
+    held(f"2,053 pairs of mixed lengths at W={W}", a, la, b, lb)
+    held("the same, the other order", b, lb, a, la, cell=False)
+    # A kelch13-sized family: 256 haplotypes of 2,181 bases, each the gene
+    # with 8 SNP slots valid at p = 0.5; its 32,640 pairs gathered on the
+    # card, in the rule's layout, against both plain versions (in chunks).
+    gene = rng.integers(0, 4, W)
+    haps = np.repeat(gene[None, :], 256, 0).astype(np.int32)
+    for h in haps:
+        at = rng.choice(W, 8, replace=False)[rng.random(8) < 0.5]
+        h[at] = (h[at] + rng.integers(1, 4, len(at))) % 4
+    pool = torch.as_tensor(haps, device=dev)
+    plens = torch.full((256,), W, dtype=torch.int32, device=dev)
+    iu, ju = (torch.as_tensor(x, device=dev) for x in np.triu_indices(256, k=1))
+    args = (pool.index_select(0, iu), plens.index_select(0, iu), pool.index_select(0, ju),
+            plens.index_select(0, ju))
+    got = batched_levenshtein_local_kernel(*args)
+    rule = local_layout(len(iu), W, W)
+    for name, plain in (("word-level", bitvector_local_plain),
+                        ("cell-level", batched_levenshtein_local)):
+        want = torch.cat([plain(*(x[i:i + LOCAL_PLAIN_CHUNK] for x in args))
+                          for i in range(0, len(iu), LOCAL_PLAIN_CHUNK)])
+        errs["local_pool"] = max(errs["local_pool"], exact(
+            f"local pool (P={len(iu)}, W={W}, layout {rule}) vs the {name} plain version",
+            got, want))
+    del args, want
+    torch.cuda.empty_cache()
 
 
 def phase_banded_kernels(dev, errs):
@@ -2011,75 +2060,89 @@ def phase_checkpoint_local(dev, workdir, records, ref, errs):
 
 
 def phase_local_times(dev, state, errs):
-    """The local kernel's rows: B = 256 against the shared reference (the
-    reference_distances launch) and the 32,640 pairs of the tree, each held
-    against phase 3g's results, timed host-inclusive and by a CUDA graph
-    beside its bound and its plain version's time."""
+    """The local kernel's rows at S = 3,000 (phase 3g's mutants) and 2,181
+    (kelch13's width: the same rows cut): B = 256 against the shared
+    reference (the reference_distances launch) and the 32,640 pairs of the
+    tree, each held against phase 3g's results (at 2,181 against the layout
+    of a pair a warp), timed host-inclusive and by a CUDA graph beside its
+    bound, its plain version's time and B3 in the same windows, with the
+    layout the rule took."""
     import torch
 
     from kgl_gene_tpu_torch.ops.edit_distance import batched_levenshtein_local
-    from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel
+    from kgl_gene_tpu_torch.ops.local import batched_levenshtein_local_kernel, local_layout
     from kgl_gene_tpu_torch.ops.wavefront import batched_levenshtein_kernel
 
-    seqs, lens, fam = state["seqs"], state["lens"], state["fam"]
-    n = seqs.shape[0]
+    fam = state["fam"]
+    n = state["seqs"].shape[0]
     rows = []
-    pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
-    plens = torch.as_tensor(lens, device=dev)
     ref_codes, ref_len = fam._padded_codes([state["ref"]])
-    ref_t = torch.as_tensor(ref_codes.astype(np.int32), device=dev)
-    rl = torch.full((n,), int(ref_len[0]), dtype=torch.int32, device=dev)
 
     def steps_of(la, lb):
         la, lb = la.astype(np.int64), lb.astype(np.int64)
         lq, lt = np.minimum(la, lb), np.maximum(la, lb)
         return int((-(-lq // 64) * lt).sum())
 
-    kern = functools.partial(batched_levenshtein_local_kernel, pool, plens, ref_t, rl)
-    plain = functools.partial(batched_levenshtein_local, pool, plens, ref_t, rl)
-    b3 = functools.partial(batched_levenshtein_kernel, pool, plens, ref_t, rl)
-    _ms, p_ms = checked_times(f"local kernel (B={n}, S={S}, one shared reference row)", "local",
-                              errs, kern, plain, 20)
-    ms, b3_ms = time_cuda_turns([kern, b3], 20)
-    d_ms, b3_d_ms = (time_device([fn], 20) for fn in (kern, b3))
-    ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens, np.full(n, ref_len[0]))
-    b_ms, by = bound(ops, pool.numel() * 4 + ref_t.numel() * 4 + 3 * n * 4)
-    log(f"  local kernel B={n} shared reference: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device "
-        f"(B3 at this shape in turns: {b3_ms:.6f} / {b3_d_ms:.6f} ms); plain (cell-level) "
-        f"{p_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
-    rows.append(dict(name="local", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
-                     replaces="kgl_gene_tpu/ops/edit_distance.py:89",
-                     shape=f"B={n}, S={S}, one shared reference row", ms=ms, device_ms=d_ms,
-                     b3_ms=b3_ms, b3_device_ms=b3_d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by,
-                     int_ops=ops))
+    for width in (S, LOCAL_GENE_BASES):
+        cut = width != S
+        seqs = state["seqs"][:, :width] if cut else state["seqs"]
+        lens = np.minimum(state["lens"], width)
+        pool = torch.as_tensor(seqs.astype(np.int32), device=dev)
+        plens = torch.as_tensor(lens, device=dev)
+        ref_t = torch.as_tensor(ref_codes[:, :width].astype(np.int32), device=dev)
+        rl = torch.full((n,), min(int(ref_len[0]), width), dtype=torch.int32, device=dev)
+        kern = functools.partial(batched_levenshtein_local_kernel, pool, plens, ref_t, rl)
+        plain = functools.partial(batched_levenshtein_local, pool, plens, ref_t, rl)
+        b3 = functools.partial(batched_levenshtein_kernel, pool, plens, ref_t, rl)
+        layout = local_layout(n, pool.shape[1], ref_t.shape[1])
+        _ms, p_ms = checked_times(f"local kernel (B={n}, S={width}, one shared reference row, "
+                                  f"layout {layout})", "local", errs, kern, plain, 20)
+        ms, b3_ms = time_cuda_turns([kern, b3], 20)
+        d_ms, b3_d_ms = (time_device([fn], 20) for fn in (kern, b3))
+        ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens, np.full(n, int(rl[0])))
+        b_ms, by = bound(ops, pool.numel() * 4 + ref_t.numel() * 4 + 3 * n * 4)
+        log(f"  local kernel B={n} S={width} shared reference, layout {layout}: {ms:.6f} ms "
+            f"host-inclusive, {d_ms:.6f} ms device (B3 at this shape in turns: {b3_ms:.6f} / "
+            f"{b3_d_ms:.6f} ms); plain (cell-level) {p_ms:.3f} ms; bound {b_ms:.6f} ms ({by})")
+        rows.append(dict(name="local", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
+                         replaces="kgl_gene_tpu/ops/edit_distance.py:89",
+                         shape=f"B={n}, S={width}, one shared reference row", ms=ms,
+                         device_ms=d_ms, b3_ms=b3_ms, b3_device_ms=b3_d_ms, plain_ms=p_ms,
+                         bound_ms=b_ms, bound_by=by, int_ops=ops, geometry=f"layout {layout}"))
 
-    iu, ju = np.triu_indices(n, k=1)
-    P = len(iu)
-    iu_t, ju_t = torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev)
-    pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
-    pla, plb = plens.index_select(0, iu_t), plens.index_select(0, ju_t)
-    kern = functools.partial(batched_levenshtein_local_kernel, pa, pla, pb, plb)
-    b3 = functools.partial(batched_levenshtein_kernel, pa, pla, pb, plb)
-    errs["local_pool"] = max(errs["local_pool"], exact(
-        f"local kernel (P={P} all pairs, S={S}) vs phase 3g's matrix", kern(),
-        torch.as_tensor(state["d_kernel"])))
-    ms, b3_ms = time_cuda_turns([kern, b3], 3, windows=3)
-    d_ms, b3_d_ms = (time_device([fn], 3) for fn in (kern, b3))
-    ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens[iu], lens[ju])
-    b_ms, by = bound(ops, 2 * pa.numel() * 4 + 3 * P * 4)
-    held, plain_s = state["plain_pairs_s"]
-    log(f"  local kernel P={P} all pairs: {ms:.6f} ms host-inclusive, {d_ms:.6f} ms device "
-        f"(B3 over the same pairs in turns: {b3_ms:.6f} / {b3_d_ms:.6f} ms, local / B3 "
-        f"{ms / b3_ms:.3f}); bound {b_ms:.6f} ms ({by}); the plain version "
-        f"{plain_s * 1e3:.3f} ms for {held} pairs")
-    rows.append(dict(name="local_pool", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
-                     replaces="kgl_gene_tpu/ops/edit_distance.py:89",
-                     shape=f"P={P} all pairs, S={S}, per-pair rows", ms=ms, device_ms=d_ms,
-                     b3_ms=b3_ms, b3_device_ms=b3_d_ms,
-                     plain_ms=plain_s * 1e3, plain_pairs=held, bound_ms=b_ms, bound_by=by,
-                     int_ops=ops))
-    del pa, pb
-    torch.cuda.empty_cache()
+        iu, ju = np.triu_indices(n, k=1)
+        P = len(iu)
+        iu_t, ju_t = torch.as_tensor(iu, device=dev), torch.as_tensor(ju, device=dev)
+        pa, pb = pool.index_select(0, iu_t), pool.index_select(0, ju_t)
+        pla, plb = plens.index_select(0, iu_t), plens.index_select(0, ju_t)
+        kern = functools.partial(batched_levenshtein_local_kernel, pa, pla, pb, plb)
+        b3 = functools.partial(batched_levenshtein_kernel, pa, pla, pb, plb)
+        layout = local_layout(P, pa.shape[1], pb.shape[1])
+        if cut:
+            wide = (32, 1 if width <= 2048 else 2)
+            want, against = kern(_layout=wide), f"the layout of a pair a warp {wide}"
+        else:
+            want, against = torch.as_tensor(state["d_kernel"]), "phase 3g's matrix"
+        errs["local_pool"] = max(errs["local_pool"], exact(
+            f"local kernel (P={P} all pairs, S={width}, layout {layout}) vs {against}", kern(),
+            want))
+        ms, b3_ms = time_cuda_turns([kern, b3], 3, windows=3)
+        d_ms, b3_d_ms = (time_device([fn], 3) for fn in (kern, b3))
+        ops = MYERS_OPS_PER_BLOCK_COLUMN * steps_of(lens[iu], lens[ju])
+        b_ms, by = bound(ops, 2 * pa.numel() * 4 + 3 * P * 4)
+        held, plain_s = state["plain_pairs_s"]
+        log(f"  local kernel P={P} all pairs S={width}, layout {layout}: {ms:.6f} ms "
+            f"host-inclusive, {d_ms:.6f} ms device (B3 over the same pairs in turns: {b3_ms:.6f} "
+            f"/ {b3_d_ms:.6f} ms, local / B3 {ms / b3_ms:.3f}); bound {b_ms:.6f} ms ({by}); the "
+            f"plain version {plain_s * 1e3:.3f} ms for {held} pairs at S={S}")
+        rows.append(dict(name="local_pool", source="kgl_gene_tpu_torch/csrc/wavefront.cu",
+                         replaces="kgl_gene_tpu/ops/edit_distance.py:89",
+                         shape=f"P={P} all pairs, S={width}, per-pair rows", ms=ms, device_ms=d_ms,
+                         b3_ms=b3_ms, b3_device_ms=b3_d_ms,
+                         plain_ms=plain_s * 1e3, plain_pairs=held, bound_ms=b_ms, bound_by=by,
+                         int_ops=ops, geometry=f"layout {layout}"))
+        del pa, pb, want
+        torch.cuda.empty_cache()
     for r in rows:
         r.update(route="cuda", library_ms=None)
     return rows

@@ -56,8 +56,9 @@ _SIGNATURES = {
     "kgt_translate": (_P, _I, _I, _I, _P, _P, _P),
     # a, a_stride, Wa, b, b_stride, Wb, la, lb, out, B, stream
     "kgt_wavefront": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
-    # the same arguments: the local (infix) distance, the shorter row the query
-    "kgt_local": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P),
+    # the same arguments with the layout (G lanes a pair, K blocks a lane)
+    # before stream: the local (infix) distance, the shorter row the query
+    "kgt_local": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P),
     # a, a_stride, Wa, text, text_stride, Wt, la, lb, out, B, band_k, stream
     "kgt_myers": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P),
     # as kgt_myers, with body (1 group, 0 thread, -1 by the rule) before stream
@@ -101,6 +102,10 @@ _SIGNATURES = {
     "kgt_translate_body": (_P, _I, _I, _P),
     # B, Wa, Wt, band_k -> 1 (group body) or 0 (thread); no launch
     "kgt_myers_body": (_I, _I, _I, _I),
+    # G, K, Wa, Wb, out: kgt_local's layout (G, K) into out (3 int64, host):
+    # blocks an SM holds, registers and local bytes a thread (-1: a layout
+    # the kernel lacks); no launch
+    "kgt_local_resources": (_I, _I, _I, _I, _P),
     # tile, entries -> blocks of kgt_mica an SM holds; no launch
     "kgt_mica_occupancy": (_I, _I),
     # K -> blocks of kgt_mica_tiles an SM holds; no launch

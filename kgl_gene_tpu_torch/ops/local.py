@@ -9,17 +9,25 @@ one: D[0][j] = 0, D[i][0] = i, and the distance is the minimum of row lq
 over columns 0..lt; an empty query gives 0.
 
 The CUDA kernel is kgt_local in csrc/wavefront.cu: kernel B3's bit-vector
-body (one warp a pair, the pattern's 64-row blocks skewed over the lanes)
-instantiated with a zero top carry and the query chosen per pair inside
-the kernel. The query is preceded by -lq mod 64 rows that match every
-symbol and start with vertical delta 0, which repeat the zero top row, so
-row lq is the last block's bit 63 and its deltas along the row are the
-carries that block hands down anyway. Idle slots ahead of block 0 put the
-last block in lane 31's last slot, whose carries B3 stores a byte a
-column for the stripe below; the last stripe stores them too, and the
-warp takes the minimum of their prefix sums after the scan. What bounds
-it is B3's: 34 int32 operations a block step over sum ceil(lq / 64) * lt
-steps.
+body (the pattern's 64-row blocks skewed over lanes) instantiated with a
+zero top carry and the query chosen per pair inside the kernel. The query
+is preceded by -lq mod 64 rows that match every symbol and start with
+vertical delta 0, which repeat the zero top row, so row lq is the last
+block's bit 63 and its deltas along the row are the carries that block
+hands down anyway. Idle slots ahead of block 0 put the last block in the
+last slot of the pair's last lane, whose carries are stored a byte a
+column; the minimum of their prefix sums is taken after the scan. What
+bounds it is B3's: 34 int32 operations a block step over sum ceil(lq / 64)
+* lt steps, issued whether a slot's block is live or not.
+
+The layout (G, K): a pair over G lanes of a warp, K blocks a lane, 32 // G
+pairs a warp. G = 32 is B3's (a pair a warp, stripes of 32 K blocks); G < 32
+is the group layout (one stripe, G K >= the pattern's blocks). local_layout
+takes it from the shapes a launch shows: among LOCAL_LAYOUTS (the kernel's
+instantiations) the one with the largest live share (live_share) at the
+pattern width's block count; G = 32 below GROUP_MIN_PAIRS pairs (with few
+pairs a warp a pair spreads them over more of the card) and above 4,096
+rows.
 
 Two plain PyTorch versions stand beside it: ops/edit_distance.
 batched_levenshtein_local (the cell-level row DP) is what a CPU tensor
@@ -36,16 +44,68 @@ import torch
 
 from .. import int32_on, kernels, resolve_device
 from .edit_distance import batched_levenshtein_local
-from .wavefront import MAX_KERNEL_LEN, SMEM_LIMIT, WORD, block_step, kernel_smem_bytes, pack_words
+from .wavefront import MAX_KERNEL_LEN, SIGMA, SMEM_LIMIT, WORD, block_step, pack_words
 
-__all__ = ["batched_levenshtein_local_kernel", "bitvector_local_plain", "local_levenshtein",
+__all__ = ["GROUP_MIN_PAIRS", "GROUP_SYMBOLS", "LOCAL_LAYOUTS", "batched_levenshtein_local_kernel",
+           "bitvector_local_plain", "live_share", "local_layout", "local_levenshtein",
            "local_smem_bytes"]
 
+# (G, K) of every instantiation of kernel `local` (with_local_layout in
+# csrc/wavefront.cu): G lanes a pair, K 64-row blocks a lane.
+LOCAL_LAYOUTS = ((32, 1), (32, 2), (5, 7), (6, 6), (8, 6))
+GROUP_SYMBOLS = 5     # match-word rows a block in the group layout: DNA5 (SIGMA_GROUP)
+GROUP_MAX_ROWS = 4096  # the group layout runs one stripe of at most 64 blocks
+# Pairs from which the group layout is taken. Timed on an H100 over 128 to
+# 32,640 pairs at 2,181, 2,304, 3,000 and 3,072 bases (scripts/
+# torch_kernel_bodies.py --local), the group layout was the faster at every
+# width from 5,120 pairs on; below, a pair a warp spreads the pairs over more
+# of the card (a group-layout warp holds 4 to 6 pairs).
+GROUP_MIN_PAIRS = 5120
 
-def local_smem_bytes(Ma: int, Mb: int) -> int:
-    """Shared memory of one pair in kgt_local: B3's layout with the
-    narrower width as the pattern's and the wider as the text's."""
-    return kernel_smem_bytes(min(Ma, Mb), max(Ma, Mb))
+
+def live_share(nblk: int, G: int, K: int) -> float:
+    """Share of the issued slots whose block is live, for a pattern of nblk
+    blocks in layout (G, K): nblk of the G K slots a stripe of a pair, 32 //
+    G pairs over the warp's 32 lanes, each lane's K slots issued in each of
+    ceil(nblk / (G K)) stripes."""
+    return nblk * (32 // G) / (32 * K * -(-nblk // (G * K)))
+
+
+def local_smem_bytes(Ma: int, Mb: int, layout: tuple[int, int] | None = None) -> int:
+    """Shared memory of one block (a warp) of kgt_local at widths (Ma, Mb),
+    the narrower the pattern's: G = 32 is B3's layout (SIGMA match words a
+    pattern block, two carry buffers of the text's width plus 32 K); G < 32
+    holds 32 // G pairs of GROUP_SYMBOLS words a block and one buffer of lt
+    bytes. layout (G, K) defaults to a pair a warp at B3's K."""
+    Wp, Wt = min(Ma, Mb), max(Ma, Mb)
+    G, K = layout or (32, 1 if Wp <= 2048 else 2)
+    if G == 32:
+        return SIGMA * _nblk_pad(Wp) * 8 + 2 * _ceil16(Wt + 32 * K)
+    return (32 // G) * (GROUP_SYMBOLS * _nblk_pad(Wp) * 8 + _ceil16(Wt))
+
+
+def _nblk_pad(W: int) -> int:
+    return max(-(-W // WORD), 1) | 1
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def local_layout(B: int, Ma: int, Mb: int) -> tuple[int, int]:
+    """The layout (G, K) kernel `local` takes for B pairs at widths (Ma,
+    Mb): a pair a warp (G = 32, B3's K) below GROUP_MIN_PAIRS pairs and for
+    patterns over GROUP_MAX_ROWS rows; else, of the layouts that cover the
+    pattern's blocks in one stripe and fit in shared memory, the one with the
+    largest live share, the larger K on a tie."""
+    Wp = min(Ma, Mb)
+    wide = (32, 1 if Wp <= 2048 else 2)
+    if B < GROUP_MIN_PAIRS or Wp > GROUP_MAX_ROWS:
+        return wide
+    nblk = max(-(-Wp // WORD), 1)
+    fits = [(G, K) for G, K in LOCAL_LAYOUTS
+            if (G == 32 or G * K >= nblk) and local_smem_bytes(Ma, Mb, (G, K)) <= SMEM_LIMIT]
+    return max(fits, key=lambda gk: (live_share(nblk, *gk), gk[1]))
 
 
 def _query_target(seq_a, len_a, seq_b, len_b):
@@ -120,14 +180,17 @@ def bitvector_local_plain(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
     return torch.where(lq == 0, 0, best).to(torch.int32)
 
 
-def batched_levenshtein_local_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor:
+def batched_levenshtein_local_kernel(seq_a, len_a, seq_b, len_b, *,
+                                     _layout: tuple[int, int] | None = None) -> torch.Tensor:
     """Local (infix) distances, (B,) int32, the shorter sequence of each
     pair as the query.
 
     seq_a (B, Ma) int32 codes; seq_b (B, Mb) per-pair, or (1, Mb) shared by
     every pair (read with stride 0); len_a, len_b (B,) int32 (clamped to
     the widths). A CPU tensor takes the cell-level plain version; a CUDA
-    tensor launches kgt_local or raises."""
+    tensor launches kgt_local or raises. _layout names the kernel's layout
+    (G, K) for measurements that hold one beside another; callers leave it
+    to local_layout."""
     if seq_a.device.type == "cpu":
         return batched_levenshtein_local(seq_a, len_a, seq_b, len_b)
     kernels.check_args(torch.int32, seq_a=seq_a, len_a=len_a, seq_b=seq_b, len_b=len_b)
@@ -137,7 +200,10 @@ def batched_levenshtein_local_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor
     if len_a.shape != (B,) or len_b.shape != (B,):
         raise ValueError(f"lengths must be ({B},)")
     Mb = seq_b.shape[1]
-    if local_smem_bytes(Ma, Mb) > SMEM_LIMIT:
+    G, K = _layout or local_layout(B, Ma, Mb)
+    if (G, K) not in LOCAL_LAYOUTS or (G < 32 and G * K * WORD < min(Ma, Mb)):
+        raise ValueError(f"layout {(G, K)} does not hold widths ({Ma}, {Mb}) in one stripe")
+    if local_smem_bytes(Ma, Mb, (G, K)) > SMEM_LIMIT:
         raise ValueError(f"widths ({Ma}, {Mb}) exceed the kernel's shared memory "
                          f"(both up to {MAX_KERNEL_LEN})")
     out = len_a.new_empty(B)
@@ -145,7 +211,7 @@ def batched_levenshtein_local_kernel(seq_a, len_a, seq_b, len_b) -> torch.Tensor
         "local", "kgt_local", seq_a.device,
         seq_a.data_ptr(), seq_a.stride(0), Ma,
         seq_b.data_ptr(), 0 if seq_b.shape[0] == 1 else seq_b.stride(0), Mb,
-        len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(), B,
+        len_a.data_ptr(), len_b.data_ptr(), out.data_ptr(), B, G, K,
     )
     return out
 

@@ -2,7 +2,7 @@
 first design of the MICA kernel beside the one the port runs, and the two
 designs of the chunk kernel of the sharded long-pair wavefront.
 
-    python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order] [--chunk]
+    python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order] [--chunk] [--local]
 
 Builds the kernels and prints the compiler's register and spill report.
 Then, on the card:
@@ -38,7 +38,15 @@ Then, on the card:
      chunk_geometry's rule) and the cooperative route (kgt_wavefront_chunks)
      at 8 and 64 chunks a launch and over the whole pair.
 
---quick stops after step 1; --chunk runs step 5 alone after it. --mica-order then times the MICA kernel on
+  6. (--local) holds kernel `local` (csrc/wavefront.cu, kgt_local) in
+     every layout of its table (ops/local.py LOCAL_LAYOUTS) that holds the
+     width against the layout of a pair a warp and the word-level plain
+     version, then times the layout of a pair a warp (G = 32) and the
+     rule's group layout over pair counts at 2,181 (kelch13), 2,304 and
+     3,000 bases, on the device alone: the table behind GROUP_MIN_PAIRS;
+     and prints each layout's live share, shared memory and warps an SM.
+
+--quick stops after step 1; --chunk runs step 5 alone after it, --local step 6. --mica-order then times the MICA kernel on
 chip_smoke.py phase 3f's 8,192 rows as the port orders them (each tile's
 rows by length inside the block) and with all rows put in one order by
 length first, the alternative the design did not take, with each order's
@@ -53,6 +61,7 @@ Needs a CUDA device.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import subprocess
 import sys
@@ -67,6 +76,10 @@ from kgl_gene_tpu_torch import kernels  # noqa: E402
 from kgl_gene_tpu_torch.ops.banded import (  # noqa: E402
     banded_choices, banded_choices_kernel_body, banded_choices_plain, banded_distance,
     banded_kernel_body, banded_plain,
+)
+from kgl_gene_tpu_torch.ops.local import (  # noqa: E402
+    GROUP_MIN_PAIRS, LOCAL_LAYOUTS, batched_levenshtein_local_kernel, bitvector_local_plain,
+    live_share, local_layout, local_smem_bytes,
 )
 from kgl_gene_tpu_torch.ops.myers import (  # noqa: E402
     MYERS_BANDS, myers_distance_padded, myers_kernel_body, myers_layout, myers_plain,
@@ -413,6 +426,70 @@ def time_mica_order(dev):
               f"{lib.kgt_mica_occupancy(tile, entries)} blocks an SM", flush=True)
 
 
+def local_pool(dev, B, S, seed):
+    """B pairs of S-base rows with codes 0..3 (the haplotypes' alphabet):
+    the second row of each pair a copy of the first with 2% of its bases
+    drawn anew, as a gene family's members differ."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(0, 4, (B, S), generator=gen, device=dev, dtype=torch.int32)
+    b = a.clone()
+    hit = torch.rand((B, S), generator=gen, device=dev) < 0.02
+    b[hit] = torch.randint(0, 4, (int(hit.sum()),), generator=gen, device=dev, dtype=torch.int32)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return a, lens, b, lens
+
+
+def check_local(dev):
+    """Every layout that holds each width against a pair a warp (the
+    parent's layout) and the word-level plain version: full-width pools,
+    ragged warps with empty queries and codes outside 0..4, both orders."""
+    from chip_smoke import exact, local_pair_set
+
+    rng = np.random.default_rng(20)
+    for S in (2048, 2181, 2304, 3000, 3072):
+        a, la, b, lb = local_pair_set(rng, [(S, S)] * 5 + [(S - 1, S), (64 * (-(-S // 64) - 1) + 1, S),
+                                            (0, S), (S, 300), (1, 9), (S, S - 40), (700, 1200)])
+        a[:, :3] = rng.integers(-3, 40, (a.shape[0], 3))
+        args = [torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32), device=dev)
+                for x in (a, la, b, lb)]
+        want = bitvector_local_plain(*args)
+        for G, K in LOCAL_LAYOUTS:
+            if G == 32 or G * K * 64 >= S:
+                for x in (args, [args[2], args[3], args[0], args[1]]):
+                    w = want if x is args else bitvector_local_plain(*x)
+                    exact(f"local ({G}, {K}) S={S} ragged, odd codes"
+                          f"{'' if x is args else ', the other order'}",
+                          batched_levenshtein_local_kernel(*x, _layout=(G, K)), w)
+        pool = local_pool(dev, 4099, S, S)
+        wide = batched_levenshtein_local_kernel(*pool, _layout=(32, 1 if S <= 2048 else 2))
+        exact(f"local S={S} 4,099 pairs: the rule's layout {local_layout(4099, S, S)} "
+              "against a pair a warp", batched_levenshtein_local_kernel(*pool), wide)
+    torch.cuda.synchronize()
+
+
+def time_local(dev):
+    """Device ms of the layout of a pair a warp and the rule's group layout
+    over pair counts: the table behind GROUP_MIN_PAIRS."""
+    from chip_smoke import time_device
+
+    for S in (2181, 2304, 3000):
+        nblk = -(-S // 64)
+        group = local_layout(max(GROUP_MIN_PAIRS, 32640), S, S)
+        wide = (32, 1 if S <= 2048 else 2)
+        for G, K in dict.fromkeys((wide, group)):
+            print(f"local S={S}: layout ({G}, {K}), live share {live_share(nblk, G, K):.4f}, "
+                  f"{local_smem_bytes(S, S, (G, K))} B of shared memory a warp, "
+                  f"{local_resources(G, K, S)[0]} warps an SM", flush=True)
+        pool = local_pool(dev, 32640, S, 1)
+        print(f"local device ms, S={S}: B | ({wide[0]}, {wide[1]}) | ({group[0]}, {group[1]}) | "
+              f"rule", flush=True)
+        for B in (256, 1024, 2048, 3072, 4096, 5120, 6144, 8192, 16384, 32640):
+            args = [x[:B] for x in pool]
+            ms = [time_device([lambda lay=lay: batched_levenshtein_local_kernel(*args, _layout=lay)],
+                              3 if B > 4096 else 10, windows=3) for lay in (wide, group)]
+            print(f"  {B} | {ms[0]:.6f} | {ms[1]:.6f} | {local_layout(B, S, S)}", flush=True)
+
+
 def dump_sass():
     """The SASS of each new kernel body, one file a kernel."""
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -425,8 +502,9 @@ def dump_sass():
         for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
                     "banded_warp_kernelILi8ELb0E", "walk_kernel", "walk_pair_major_kernel",
                     "mica_kernelILi16E",
-                    "mica_rows_kernel", "bitvector_kernelILi1ELb0E", "bitvector_kernelILi1ELb1E",
-                    "bitvector_kernelILi2ELb0E", "bitvector_kernelILi2ELb1E",
+                    "mica_rows_kernel", "bitvector_kernelILi32ELi1ELb0E",
+                    "bitvector_kernelILi32ELi2ELb0E",
+                    *(f"bitvector_kernelILi{G}ELi{K}ELb1E" for G, K in LOCAL_LAYOUTS),
                     "wavefront_chunk_kernel", "wavefront_chunks_kernel",
                     "wavefront_chunk_lane_kernel"):
             if key in name:
@@ -438,6 +516,28 @@ def dump_sass():
                     cells = CHUNK_EXCHANGE_STEPS * CHUNK_LANES_A_THREAD
                     print(f"    its loop of {CHUNK_EXCHANGE_STEPS} steps ({cells} cells a "
                           f"thread): {n} instructions, {shfl} SHFL, {n / cells:.2f} a cell")
+    local_report()
+
+
+def local_resources(G, K, S):
+    """(warps an SM, registers, spilled bytes a thread) of kernel `local`
+    in layout (G, K) at S bases (the occupancy API and the function's
+    attributes)."""
+    out = (ctypes.c_int64 * 3)()
+    err = kernels.library().kgt_local_resources(G, K, S, S, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"kgt_local_resources({G}, {K}): error {err}")
+    return tuple(out)
+
+
+def local_report():
+    """Registers, spills and warps an SM of kernel `local` in each layout,
+    at 2,181 and 3,000 bases."""
+    for G, K in LOCAL_LAYOUTS:
+        res = {S: local_resources(G, K, S) for S in (2181, 3000)}
+        regs, spill = res[2181][1:]
+        print(f"  local ({G}, {K}): {regs} registers, {spill} bytes of local memory a thread "
+              f"(spills); warps an SM {{2181: {res[2181][0]}, 3000: {res[3000][0]}}}", flush=True)
 
 
 def main() -> int:
@@ -457,6 +557,10 @@ def main() -> int:
     check(dev)
     if "--chunk" in sys.argv:
         time_chunk(dev)
+        return 0
+    if "--local" in sys.argv:
+        check_local(dev)
+        time_local(dev)
         return 0
     if "--mica-order" in sys.argv:
         time_mica_order(dev)
