@@ -12,12 +12,15 @@ A run: set-up (the driver makes the gene and the input sets from the seed,
 builds the program's call and warms every shape the traffic uses), then a
 closed loop for --seconds: one call in flight, the next issued when the
 last one's outputs are on the host. With --trace 1 torch.profiler records
-the window, which then lasts at most TRACE_SECONDS. Then the program's
-state is freed and the driver's reference judges the answers. The last
-line of standard output is one JSON object: correct, attempted, failed,
-metrics (the cell's end-to-end metrics, or with --trace 1 its per-layer
-ones), device, with --trace 1 breakdown, and last `checks`: each number
-compared with its limit, also the last lines of standard error. Exit
+the window, which then lasts at most TRACE_SECONDS, and trace.py reduces
+it: the harness's spans and the port's (kgt.*), each one's host and
+device seconds, the idle under each. Then the program's state is freed
+and the driver's reference judges the answers. The last line of standard
+output is one JSON object: correct, attempted, failed, metrics (the
+cell's end-to-end metrics, or with --trace 1 its per-layer ones), device,
+with --trace 1 breakdown and `unlinked` (the share of the window's device
+time whose launch the trace does not hold), and last `checks`: each
+number compared with its limit, also the last lines of standard error. Exit
 codes: 0 a result printed, 2 no card or too few cards, 3 a forbidden
 module loaded; any other failure raises.
 """
@@ -104,6 +107,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool = False, devi
              traffic_override: dict | None = None, patch=None) -> dict:
     """One run of a cell; returns the result object. patch(cell), where
     given, is called after set-up: the tests break the timed path with it."""
+    return run_and_trace(workload, seed, seconds, trace, device, traffic_override, patch)[0]
+
+
+def run_and_trace(workload: str, seed: int, seconds: float, trace: bool = False,
+                  device: str = "cuda", traffic_override: dict | None = None, patch=None):
+    """run_cell's run: (the result object, the window's trace.Trace, or None
+    when untraced)."""
     import torch
     from torch.profiler import record_function
 
@@ -171,8 +181,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool = False, devi
     if traced is not None:
         result["device"].update(busy_s=traced.busy_s, window_s=traced.window_s)
         result["breakdown"] = traced.breakdown()
+        result["unlinked"] = traced.unlinked_share()
     result["checks"] = {name: {"value": value, "limit": limit} for name, value, limit in checks}
-    return result
+    return result, traced
 
 
 def main(argv=None) -> int:

@@ -83,3 +83,13 @@ def test_first_wins_differs_only_where_slots_collide():
     valid = torch.ones(1, 3, dtype=torch.bool)
     assert gene.apply_snps(region, pos, alt, valid)[0, 3] == 2
     assert gene.apply_snps(region, pos, alt, valid, first_wins=True)[0, 3] == 1
+
+
+def test_the_gene_is_read_on_its_strand():
+    config = {"region_start": 100, "region_len": 12, "exons": [[102, 105], [107, 110]],
+              "strand": "-"}
+    region = generate.gene_region(generate.rng_for(1, 0), config)
+    coding = generate.coding_of(region, config)
+    assert coding.tolist()[:3] == [0, 3, 2] and coding.tolist()[3:] == [3, 0, 0]  # ATG, TAA
+    spliced = np.concatenate([region[2:5], region[7:10]])
+    assert (3 - spliced[::-1]).tolist() == coding.tolist()

@@ -10,29 +10,26 @@ import sys
 import pytest
 
 from port_bench import run
-from port_bench.tests.breakers import FAULTS
+from port_bench.tests.cells import hooks_of_cell, with_hooks
 
 ROOT = run.ROOT
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
-# Cells at sizes a CPU test holds: the port's plain routes stand in for the kernels.
-SMALL = {
-    "pf-gene-step.cohort": {"genomes": 32, "sets": 2, "amino_rows": 8},
-    "pf-gene-family.near": {"haplotypes": 8, "sets": 2},
-    "pf-gene-family.local": {"haplotypes": 6, "sets": 2},
-}
+CELLS = with_hooks(MANIFEST)
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "checks"]
 
 
 def small_run(workload, trace=False, patch=None, seed=7):
+    """A run at the sizes of its driver's SMALL: the port's plain routes
+    stand in for the kernels."""
     return run.run_cell(workload, seed, 0.05, trace=trace, device="cpu",
-                        traffic_override=SMALL[workload], patch=patch)
+                        traffic_override=hooks_of_cell(MANIFEST, workload).SMALL, patch=patch)
 
 
 @pytest.mark.parametrize("trace", [False, True])
-def test_the_result_line_has_the_contracts_keys(trace):
-    workload = "pf-gene-step.cohort"
+@pytest.mark.parametrize("workload", CELLS)
+def test_the_result_line_has_the_contracts_keys(workload, trace):
     result = small_run(workload, trace)
-    keys = KEYS[:-1] + (["breakdown"] if trace else []) + ["checks"]
+    keys = KEYS[:-1] + (["breakdown", "unlinked"] if trace else []) + ["checks"]
     assert list(result) == keys
     assert result["correct"] is True and result["failed"] == 0
     assert set(result["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
@@ -43,6 +40,8 @@ def test_the_result_line_has_the_contracts_keys(trace):
     else:
         assert {"busy_s", "window_s"} <= set(result["device"])
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+        assert all(len(v) <= 10 for v in result["breakdown"].values())
+        assert 0.0 <= result["unlinked"] <= 1.0
     for metric in result["metrics"].values():
         assert set(metric) == {"value", "unit"}
     for check in result["checks"].values():
@@ -52,16 +51,17 @@ def test_the_result_line_has_the_contracts_keys(trace):
 
 def test_without_a_card_a_run_prints_nothing_and_fails():
     out = subprocess.run([sys.executable, "-m", "port_bench.run", "--workload",
-                          "pf-gene-step.cohort", "--seed", "1", "--seconds", "1"],
+                          MANIFEST["workloads"][0]["name"], "--seed", "1", "--seconds", "1"],
                          cwd=ROOT, capture_output=True, text=True, timeout=120,
                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and out.stdout == ""
 
 
 def test_a_run_imports_neither_jax_nor_the_jax_package():
-    code = ("import json, sys; from port_bench import run; "
-            "run.run_cell('pf-gene-family.near', 3, 0.05, device='cpu', traffic_override="
-            + repr(SMALL["pf-gene-family.near"]) + "); "
+    small = {w: hooks_of_cell(MANIFEST, w).SMALL for w in CELLS}
+    code = ("import json, sys; from port_bench import run\n"
+            f"for w, small in {small!r}.items():\n"
+            "    run.run_cell(w, 3, 0.05, device='cpu', traffic_override=small)\n"
             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
@@ -79,14 +79,13 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
 
 
 def _cases():
-    for workload in SMALL:
-        _cell, config, _traffic = run.cell_files(MANIFEST, workload)
-        for fault in FAULTS[config["driver"]]:
-            yield workload, config["driver"], fault
+    for workload in CELLS:
+        for fault in hooks_of_cell(MANIFEST, workload).FAULTS:
+            yield workload, fault
 
 
-@pytest.mark.parametrize("workload,driver,fault", list(_cases()))
-def test_each_fault_makes_the_run_incorrect(workload, driver, fault):
-    result = small_run(workload, patch=FAULTS[driver][fault])
+@pytest.mark.parametrize("workload,fault", list(_cases()))
+def test_each_fault_makes_the_run_incorrect(workload, fault):
+    result = small_run(workload, patch=hooks_of_cell(MANIFEST, workload).FAULTS[fault])
     assert result["correct"] is False
     assert any(c["value"] > c["limit"] for c in result["checks"].values())

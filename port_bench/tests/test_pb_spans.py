@@ -1,16 +1,23 @@
-"""spans.reduce_events on synthetic kineto events: the harness's spans alone
-give trace.reduce_events's Trace field for field; nested port spans take
-the idle under them; a device op goes to the span that holds its launch.
-And one traced CPU run of each cell names the port's spans."""
+"""trace.reduce_events on synthetic kineto events and on the events of
+traced CPU runs: window_s, busy_s, ops and kernels equal the reduction
+before the port's spans were read (reduce_before, kept here frozen), so
+every per-layer metric of before reads the same; the harness's spans
+alone give the same idle too; nested port spans take the idle under them;
+a device op goes to the span that holds its launch, and the spans' device
+seconds and the unlinked ones sum to the window's device seconds. And one
+traced CPU run of each cell names the port's spans."""
 
-from dataclasses import dataclass, fields
+import collections
+import json
+from dataclasses import dataclass
 
 import pytest
 import torch
 
-from port_bench import spans, trace
-from port_bench.tests.test_pb_run import SMALL
+from port_bench import run, spans, trace
+from port_bench.tests.cells import hooks_of_cell, with_hooks
 
+MANIFEST = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 CPU, CUDA = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 HARNESS = {"step.call", "step.fetch", "bench.record"}
 
@@ -63,6 +70,68 @@ def launch(lo, corr):
     return Ev("cudaLaunchKernel", lo, lo + 2, "cuda_runtime", corr=corr)
 
 
+def reduce_before(events, span_names) -> dict:
+    """The reduction before the port's spans were read (trace.py as the
+    benchmark first had it), frozen: window, busy, ops, kernels, and the
+    idle gaps charged to the harness's spans alone."""
+    spans_, device = [], []
+    for ev in events:
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            kind = trace._kind(ev)
+            if kind in ("kernel", "gpu_memcpy", "gpu_memset"):
+                device.append((ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name(), kind))
+        elif ev.name() in span_names and ev.is_user_annotation():
+            spans_.append((ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name()))
+    w_lo = min(s[0] for s in spans_)
+    w_hi = max(s[1] for s in spans_)
+    ops = collections.Counter()
+    kernels = collections.Counter()
+    inside = []
+    for lo, hi, name, kind in device:
+        lo, hi = max(lo, w_lo), min(hi, w_hi)
+        if hi <= lo:
+            continue
+        ops[name] += (hi - lo) * 1e-9
+        if kind == "kernel":
+            kernels[name] += (hi - lo) * 1e-9
+        inside.append((lo, hi))
+    busy = trace._union(inside)
+    gaps, at = [], w_lo
+    for lo, hi in busy:
+        if lo > at:
+            gaps.append((at, lo))
+        at = max(at, hi)
+    if at < w_hi:
+        gaps.append((at, w_hi))
+    idle = collections.Counter()
+    spans_.sort()
+    j = 0
+    for g_lo, g_hi in gaps:
+        covered = 0
+        while j < len(spans_) and spans_[j][1] <= g_lo:
+            j += 1
+        k = j
+        while k < len(spans_) and spans_[k][0] < g_hi:
+            over = min(g_hi, spans_[k][1]) - max(g_lo, spans_[k][0])
+            if over > 0:
+                idle[spans_[k][2]] += over * 1e-9
+                covered += over
+            k += 1
+        if g_hi - g_lo - covered > 0:
+            idle["outside_any_span"] += (g_hi - g_lo - covered) * 1e-9
+    return {"window_s": (w_hi - w_lo) * 1e-9, "busy_s": sum(hi - lo for lo, hi in busy) * 1e-9,
+            "ops": dict(ops), "kernels": dict(kernels), "idle_gaps": dict(idle)}
+
+
+def assert_keeps_the_readings(new, old):
+    """Window, busy, ops and kernels as before; every device second either
+    under a span or unlinked."""
+    for name in ("window_s", "busy_s", "ops", "kernels"):
+        assert getattr(new, name) == old[name], name
+    assert sum(new.span_device_s.values()) + new.unlinked_s == pytest.approx(
+        sum(new.ops.values()), rel=1e-12, abs=1e-15)
+
+
 def harness_only():
     """Two calls with their fetch and check; kernels, a copy, a set and a
     device annotation, some past the window's edges; one gap over spans
@@ -80,12 +149,13 @@ def harness_only():
 
 def test_with_the_harness_spans_alone_the_trace_is_trace_py_s():
     events = harness_only()
-    old = trace.reduce_events(events, HARNESS)
-    new = spans.reduce_events(events, HARNESS)
-    for f in fields(trace.Trace):
-        assert getattr(new, f.name) == getattr(old, f.name), f.name
-    assert old.idle_gaps["bench.record"] > 0 and old.idle_gaps["step.call"] > 0
-    assert old.breakdown() == {k: v for k, v in new.breakdown().items() if k != "unlinked"}
+    old = reduce_before(events, HARNESS)
+    new = trace.reduce_events(events, HARNESS)
+    assert_keeps_the_readings(new, old)
+    assert new.idle_gaps == old["idle_gaps"]
+    assert old["idle_gaps"]["bench.record"] > 0 and old["idle_gaps"]["step.call"] > 0
+    # every op but myers has no launch in the trace: add 60 + 60, copy 15, set 10, tail 50
+    assert new.unlinked_s == pytest.approx(195e-9)
 
 
 def test_idle_goes_to_the_innermost_span_and_sums_to_the_idle_window():
@@ -97,7 +167,7 @@ def test_idle_goes_to_the_innermost_span_and_sums_to_the_idle_window():
         kernel("apply", 150, 250, 7), launch(120, 7),
         kernel("checks", 600, 1100, 8), launch(520, 8),
     ]
-    t = spans.reduce_events(events, HARNESS)
+    t = trace.reduce_events(events, HARNESS)
     assert t.window_s == pytest.approx(1400e-9) and t.busy_s == pytest.approx(600e-9)
     want = {"step.call": 10, "kgt.step.upload": 90, "kgt.step.apply": 50 + 150,
             "kgt.step.translate": 100, "kgt.step.checks": 100, "step.fetch": 100,
@@ -107,6 +177,7 @@ def test_idle_goes_to_the_innermost_span_and_sums_to_the_idle_window():
     assert t.span_s["kgt.step"] == pytest.approx(980e-9)
     assert t.span_s["kgt.step.checks"] == pytest.approx(490e-9)
     assert "kgt.step" not in t.idle_gaps  # its children cover all of it
+    assert_keeps_the_readings(t, reduce_before(events, HARNESS))
 
 
 def test_a_device_op_goes_to_the_span_that_holds_its_launch():
@@ -128,34 +199,51 @@ def test_a_device_op_goes_to_the_span_that_holds_its_launch():
         # ... and a link is never read as a runtime call's id (another count)
         Ev("sum", 740, 745, "kernel", corr=51, linked=2),
     ]
-    t = spans.reduce_events(events, {"matrix.call", "bench.record"})
+    t = trace.reduce_events(events, {"matrix.call", "bench.record"})
     want = {"kgt.pairs.upload": 50, "kgt.pairs.gather": 40, "kgt.pairs.distance": 380,
             "kgt.pairs.fetch": 20 + 10, "outside_any_span": 10}
     assert t.span_device_s == pytest.approx({k: v * 1e-9 for k, v in want.items()})
     assert t.unlinked_s == pytest.approx(55e-9)
-    assert t.breakdown()["unlinked"] == pytest.approx(55 / 565)
+    assert t.unlinked_share() == pytest.approx(55 / 565)
+    assert_keeps_the_readings(t, reduce_before(events, {"matrix.call", "bench.record"}))
     assert t.idle_gaps["kgt.pairs.fetch"] == pytest.approx((80 + 50 + 10 + 10 + 245) * 1e-9)
 
 
 def test_innermost_segments_take_the_shorter_of_two_spans_opened_at_once():
-    segs = spans.innermost_segments([(0, 10, "a"), (0, 4, "b"), (6, 10, "c"), (20, 30, "d")])
+    segs = trace.innermost_segments([(0, 10, "a"), (0, 4, "b"), (6, 10, "c"), (20, 30, "d")])
     assert segs == [(0, 4, "b"), (4, 6, "a"), (6, 10, "c"), (20, 30, "d")]
 
 
-@pytest.mark.parametrize("workload", sorted(SMALL))
+@pytest.mark.parametrize("workload", with_hooks(MANIFEST))
+def test_the_reduction_keeps_the_old_readings_on_a_traced_cpu_run(workload, monkeypatch):
+    reduce = trace.reduce_events
+    compared = []
+
+    def both(events, span_names):
+        new = reduce(events, span_names)
+        assert_keeps_the_readings(new, reduce_before(events, span_names))
+        compared.append(new)
+        return new
+
+    monkeypatch.setattr(trace, "reduce_events", both)
+    cells = hooks_of_cell(MANIFEST, workload)
+    result = run.run_cell(workload, 3, 0.05, trace=True, device="cpu",
+                          traffic_override=cells.SMALL)
+    assert result["correct"] and len(compared) == 1
+    assert set(compared[0].span_s) >= set(run.load_module(
+        "drivers", run.cell_files(MANIFEST, workload)[1]["driver"]).SPANS)
+
+
+@pytest.mark.parametrize("workload", with_hooks(MANIFEST))
 def test_a_traced_cpu_run_names_the_port_s_spans(workload):
-    result = spans.run_spans(workload, 3, 0.05, device="cpu", traffic_override=SMALL[workload])
+    cells = hooks_of_cell(MANIFEST, workload)
+    traffic = run.cell_files(MANIFEST, workload)[2]
+    result = spans.run_spans(workload, 3, 0.05, device="cpu", traffic_override=cells.SMALL)
     assert result["correct"]
     host = result["spans"]["host_ms"]
     idle = dict(result["breakdown"]["idle_gaps"])
-    if workload.startswith("pf-gene-step"):
-        stages = ["kgt.step"] + [f"kgt.step.{s}" for s in
-                                 ("upload", "apply", "translate", "distance", "checks")]
-    elif workload.endswith("near"):
-        stages = ["kgt.pairs"] + [f"kgt.pairs.{s}" for s in
-                                  ("index", "upload", "gather", "distance", "fetch", "assemble")]
-    else:  # the driver's copy of the local branch calls gathered_pairs alone
-        stages = [f"kgt.pairs.{s}" for s in ("upload", "gather", "distance", "fetch")]
+    stages = cells.port_spans(traffic)
     assert set(stages) <= set(host) and all(host[s] > 0 for s in stages)
-    assert any(name.startswith("kgt.") for name in idle)
-    assert result["breakdown"]["unlinked"] == 0.0  # no device ops on the CPU
+    if stages:
+        assert any(name.startswith("kgt.") for name in idle)
+    assert result["unlinked"] == 0.0  # no device ops on the CPU

@@ -1,64 +1,56 @@
 """Each traffic mix fixes the amount of work: at three seeds the same
-genomes, slots, haplotypes, pairs and route; the seed picks values only."""
+amounts (its driver's cells module's work_of), while the seed changes the
+values of the largest input array; and each input holds what its kind
+must (the module's check_inputs), a route only where a reader of the
+cell needs it."""
 
 import json
 
 import numpy as np
 import pytest
 
-from port_bench import generate, run
+from port_bench import run
+from port_bench.tests.cells import hooks, hooks_of_cell, reads, with_hooks
 
 MANIFEST = json.loads((run.ROOT / "BENCHMARK.json").read_text())
 SEEDS = (1, 2**31 + 11, 2**40 + 3)
 
 
-def work_of(config, traffic, sets):
-    """The amounts of work a run of these inputs makes, and the route."""
-    if traffic["generator"] == "snp_sets":
-        B, K = sets[0][0].shape
-        assert all(s[0].shape == (B, K) for s in sets)
-        return {"genomes": B, "slots": K, "sets": len(sets)}
-    n, S = sets[0].shape
-    return {"haplotypes": n, "bases": S, "pairs": n * (n - 1) // 2, "sets": len(sets),
-            "metric": traffic["metric"], "band": traffic.get("band")}
+def arrays(x):
+    """Every numpy array in an input, in order."""
+    if isinstance(x, np.ndarray):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [a for item in x for a in arrays(item)]
+    return []
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in MANIFEST["workloads"]])
+@pytest.mark.parametrize("workload", with_hooks(MANIFEST))
 def test_work_is_the_same_at_every_seed(workload):
     _cell, config, traffic = run.cell_files(MANIFEST, workload)
-    works, firsts = [], []
+    cells = hooks_of_cell(MANIFEST, workload)
+    works, seen = [], []
     for seed in SEEDS:
-        region, sets = generate.inputs(seed, config, traffic)
-        works.append(work_of(config, traffic, sets))
-        firsts.append(sets[0][0] if isinstance(sets[0], tuple) else sets[0])
-        coding = generate.coding_of(region, config)
-        codons = coding.reshape(-1, 3) @ np.array([16, 4, 1])
-        assert codons[0] == generate.START_CODON and codons[-1] == generate.END_CODON
-        assert not np.isin(codons[1:-1], generate.STOP_CODONS).any()
-        if traffic["generator"] == "haplotype_sets":
-            for haps in sets:
-                assert ((haps != coding[None, :]).sum(1) <= traffic["slots"]).all()
-                assert len(np.unique(haps, axis=0)) == len(haps)
+        inputs = cells.inputs(seed, config, traffic)
+        cells.check_inputs(config, traffic, inputs, reads(MANIFEST, workload))
+        works.append(cells.work_of(config, traffic, inputs))
+        seen.append(arrays(inputs))
     assert works[0] == works[1] == works[2]
-    assert not np.array_equal(firsts[0], firsts[1])  # the seed changes the values
+    first, second = (max(a, key=lambda x: x.size) for a in seen[:2])
+    assert not np.array_equal(first, second)  # the seed changes the values
 
 
-def test_the_routes_the_cells_name():
-    from kgl_gene_tpu_torch.analysis.lib_seqmutation import DEVICE_BAND
-    from kgl_gene_tpu_torch.ops.myers import myers_band_for
-
-    step = json.loads((run.BENCH / "traffic/cohort.json").read_text())
-    assert myers_band_for(step["slots"], max_band=127) == 31  # the port's rule: B1 at band 31
-    near = json.loads((run.BENCH / "traffic/near.json").read_text())
-    # the analysis's own band; every pair of the family is at most 2 x 8 apart, inside it
-    assert near["band"] == DEVICE_BAND and 2 * near["slots"] <= near["band"]
-
-
-def test_the_gene_is_read_on_its_strand():
-    config = {"region_start": 100, "region_len": 12, "exons": [[102, 105], [107, 110]],
-              "strand": "-"}
-    region = generate.gene_region(generate.rng_for(1, 0), config)
-    coding = generate.coding_of(region, config)
-    assert coding.tolist()[:3] == [0, 3, 2] and coding.tolist()[3:] == [3, 0, 0]  # ATG, TAA
-    spliced = np.concatenate([region[2:5], region[7:10]])
-    assert (3 - spliced[::-1]).tolist() == coding.tolist()
+def test_a_step_past_b1_s_bands_is_held_to_b1_only_where_a_cell_reads_b1():
+    """A step traffic of 160 slots (no band of B1 holds it) is a sound
+    traffic of its own; listed under B1's roofline it fails."""
+    config = next(run.load_json(run.ROOT / c["file"]) for c in MANIFEST["configs"]
+                  if run.load_json(run.ROOT / c["file"])["driver"] == "forward_step")
+    cells = hooks("forward_step")
+    traffic = {"generator": "snp_sets", "genomes": 16, "slots": 160, "valid_p": 0.5,
+               "sets": 2, "amino_rows": 4}
+    inputs = cells.inputs(7, config, traffic)
+    cells.check_inputs(config, traffic, inputs, ["genomes_per_s.wide"])
+    with pytest.raises(AssertionError):
+        cells.check_inputs(config, traffic, inputs, ["b1_roofline_pct.wide"])
+    narrow = dict(traffic, slots=8)
+    cells.check_inputs(config, narrow, cells.inputs(7, config, narrow), ["b1_roofline_pct.wide"])
