@@ -20,23 +20,134 @@ frequencies and re-estimates them, kga_analysis_inbreed_synthetic.h:56).
 
 Copy of kgl_gene_tpu/analysis/inbreed_analysis.py on the port's
 stats/inbreeding.py: the four estimators run as PyTorch on the
-analysis's device.
+analysis's device, in two stages. prepare, once a population: its
+per-variant columns (InbreedColumns), the genomes' codes put on the device
+once, variant-major (V, G) uint8, built block by block through
+VariantMajorCSR (no G x V temporary on the host), or columns handed in
+directly (InbreedColumns.on_device). estimate, once a parameter set: the
+loci selected on the host from the (V,) columns, their index and AF
+uploaded, their codes gathered on the device into one (L, G) block, the
+requested estimators run on it, and (G, n) F fetched.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from .. import resolve_device
 from ..app.analysis import VirtualAnalysis, register_analysis
-from ..stats.frequency import FrequencyDatabaseRead
-from ..stats.inbreeding import LocusData, inbreeding_all, _ESTIMATORS
+from ..stats.frequency import SUPER_POPULATIONS, FrequencyDatabaseRead
+from ..stats.inbreeding import _ESTIMATORS, inbreeding_all, run_estimators
+from ..tracing import span
 from ..utils.logging import log
-from ..variant.columnar import VariantMajorView
+from ..variant.columnar import VariantMajorCSR
 
-__all__ = ["InbreedAnalysis"]
+__all__ = ["InbreedAnalysis", "InbreedColumns", "InbreedEstimate"]
+
+# Variants densified and uploaded at a time while a population is prepared.
+PREPARE_BLOCK_VARIANTS = 1 << 16
+
+
+@dataclass
+class InbreedColumns:
+    """A population as INBREED reads it, prepared once.
+
+    codes: (V, G) uint8 zygosity codes {0, 1, 2} on the device, variant-major
+    (VariantMajorCSR.dense_block_t's layout); offsets, contig_index, is_snp:
+    (V,) host columns, variants sorted by (contig, offset); frequencies: AF
+    columns (V,) float64 by super population (SUPER_POPULATIONS' names, ALL
+    for the AF field), NaN where a variant has none; population_freq: the
+    population's own AF (V,), read where no column names the super
+    population."""
+
+    codes: torch.Tensor
+    offsets: np.ndarray
+    contig_index: np.ndarray
+    is_snp: np.ndarray
+    genome_ids: List[str]
+    frequencies: Dict[str, np.ndarray] = field(default_factory=dict)
+    population_freq: Optional[np.ndarray] = None
+
+    @property
+    def variant_count(self) -> int:
+        return int(self.codes.shape[0])
+
+    @property
+    def genome_count(self) -> int:
+        return int(self.codes.shape[1])
+
+    @classmethod
+    def on_device(cls, codes, offsets, contig_index, is_snp, genome_ids,
+                  frequencies: Dict[str, np.ndarray], device=None) -> "InbreedColumns":
+        """Columns handed in directly: codes (V, G) uint8, a numpy array or a
+        tensor (kept where it already is on the device), the rest (V,)."""
+        dev = resolve_device(device)
+        codes = torch.as_tensor(codes, device=dev)
+        V, G = codes.shape
+        if codes.dtype != torch.uint8:
+            raise TypeError(f"codes must be uint8, not {codes.dtype}")
+        host = [np.asarray(x) for x in (offsets, contig_index, is_snp)]
+        host += [np.asarray(c, dtype=np.float64) for c in frequencies.values()]
+        if any(x.shape != (V,) for x in host) or len(genome_ids) != G:
+            raise ValueError(f"columns must hold {V} variants and {G} genomes")
+        return cls(codes, host[0], host[1], host[2].astype(bool), list(genome_ids),
+                   {k.upper(): c for k, c in zip(frequencies, host[3:])})
+
+    @classmethod
+    def from_population(cls, population, device=None,
+                        super_populations=SUPER_POPULATIONS) -> Optional["InbreedColumns"]:
+        """A PopulationDB's columns, None where it holds no variant. The codes
+        go to the device a block of variants at a time from the CSR."""
+        csr = VariantMajorCSR(population)
+        V, G = csr.variant_count, csr.genome_count
+        if V == 0:
+            return None
+        dev = resolve_device(device)
+        codes = torch.empty((V, G), dtype=torch.uint8, device=dev)
+        for v_lo in range(0, V, PREPARE_BLOCK_VARIANTS):
+            v_hi = min(v_lo + PREPARE_BLOCK_VARIANTS, V)
+            codes[v_lo:v_hi] = torch.from_numpy(csr.dense_block_t(v_lo, v_hi)).to(dev)
+        arena = population.arena
+        frequencies = {}
+        info = getattr(population, "info_store", None)
+        if info is not None:
+            freq_read = FrequencyDatabaseRead(info)
+            info_rows = np.array([arena.info_row(int(r)) for r in csr.rows], dtype=np.int64)
+            for name in dict.fromkeys(s.upper() for s in super_populations):
+                column = freq_read.frequency_column(name)
+                if column is not None:
+                    safe = np.clip(info_rows, 0, len(column) - 1)
+                    frequencies[name] = np.where(info_rows >= 0, column[safe], np.nan)
+        return cls(codes, csr.offsets, csr.contig_index, arena.is_snp_column()[csr.rows],
+                   list(csr.genome_ids), frequencies, csr.allele_frequencies())
+
+    def frequency(self, super_population: str) -> np.ndarray:
+        """AF (V,) float64 the analysis reads for a super population: its
+        column, else the population's own (NaN read as 0)."""
+        column = self.frequencies.get(super_population.upper())
+        if column is None:
+            if self.population_freq is None:
+                alt = self.codes.sum(1, dtype=torch.int64).cpu().numpy()
+                self.population_freq = alt / (2 * self.genome_count)
+            column = self.population_freq
+        return np.nan_to_num(np.asarray(column, dtype=np.float64), nan=0.0)
+
+
+@dataclass
+class InbreedEstimate:
+    """One estimate: F (G, len(algorithms)) float32, a column an estimator;
+    loci, the selected variants' indices into the columns (L,); minor_freq,
+    their AF (L,)."""
+
+    algorithms: List[str]
+    f: np.ndarray
+    loci: np.ndarray
+    minor_freq: np.ndarray
 
 
 @register_analysis
@@ -113,41 +224,59 @@ class InbreedAnalysis(VirtualAnalysis):
             mask = np.where(contigs == c, cmask, mask)
         return mask
 
-    def _locus_data(self, population) -> Optional[LocusData]:
-        view = VariantMajorView(population)
-        if view.variant_count == 0:
-            return None
-        info = getattr(population, "info_store", None)
-        minor_freq = None
-        if info is not None:
-            freq_read = FrequencyDatabaseRead(info)
-            info_rows = np.array(
-                [population.arena.info_row(int(r)) for r in view.rows], dtype=np.int64
-            )
-            column = freq_read.frequency_column(self.super_population)
-            if column is not None:
-                safe = np.clip(info_rows, 0, len(column) - 1)
-                minor_freq = np.where(info_rows >= 0, column[safe], np.nan)
-        if minor_freq is None:
-            # Fall back to frequencies from the population itself.
-            minor_freq = view.allele_frequencies()
-        minor_freq = np.nan_to_num(np.asarray(minor_freq, dtype=np.float64), nan=0.0)
-        # Locus window by AF bin (locus selection, kga_analysis_inbreed_locus.h).
-        window = (minor_freq >= self.min_af) & (minor_freq <= self.max_af)
-        # Restrict to SNP loci (the estimators' model).
-        snp = population.arena.is_snp_column()[view.rows]
-        candidate = window & snp & (minor_freq > 0) & (minor_freq < 1)
-        selected = self.select_loci(
-            view.offsets, view.contig_index, candidate,
-            self.lower_window, self.upper_window,
-            self.sampling_distance, self.locii_count,
-        )
-        valid = np.broadcast_to(selected, view.zygosity.shape).copy()
-        data = LocusData(zygosity=view.zygosity, minor_freq=minor_freq, valid=valid)
-        data.genome_ids = view.genome_ids  # type: ignore[attr-defined]
-        return data
+    @property
+    def algorithms(self) -> List[str]:
+        return list(_ESTIMATORS) if self.algorithm == "ALL" else [self.algorithm]
 
-    def _synthetic_analysis(self, data: LocusData) -> bool:
+    def prepare(self, population) -> Optional[InbreedColumns]:
+        """Stage one, once a population: its columns, the codes on the
+        analysis's device. None where the population holds no variant."""
+        with span("kgt.inbreed.prepare"):
+            return InbreedColumns.from_population(
+                population, self.device, SUPER_POPULATIONS + (self.super_population,))
+
+    def prepare_columns(self, codes, offsets, contig_index, is_snp, genome_ids,
+                        frequencies: Dict[str, np.ndarray]) -> InbreedColumns:
+        """Stage one from columns handed in directly (InbreedColumns.on_device)."""
+        with span("kgt.inbreed.prepare"):
+            return InbreedColumns.on_device(codes, offsets, contig_index, is_snp, genome_ids,
+                                            frequencies, self.device)
+
+    def selected_loci(self, columns: InbreedColumns, super_population: Optional[str] = None):
+        """(loci (L,) int64, their AF (L,) float64): the SNPs whose AF of the
+        super population lies in [MinAF, MaxAF] and 0 < AF < 1, thinned by
+        select_loci."""
+        with span("kgt.inbreed.select"):
+            af = columns.frequency(super_population or self.super_population)
+            # Locus window by AF bin (locus selection, kga_analysis_inbreed_locus.h),
+            # restricted to SNP loci (the estimators' model).
+            candidate = ((af >= self.min_af) & (af <= self.max_af) & columns.is_snp
+                         & (af > 0) & (af < 1))
+            loci = np.nonzero(self.select_loci(
+                columns.offsets, columns.contig_index, candidate,
+                self.lower_window, self.upper_window,
+                self.sampling_distance, self.locii_count,
+            ))[0]
+            return loci, af[loci]
+
+    def estimate(self, columns: InbreedColumns,
+                 super_population: Optional[str] = None) -> InbreedEstimate:
+        """Stage two, once a parameter set: the selected loci's codes
+        gathered on the device, the analysis's algorithms run on them."""
+        with span("kgt.inbreed"):
+            loci, minor_freq = self.selected_loci(columns, super_population)
+            dev = columns.codes.device
+            with span("kgt.inbreed.upload"):
+                index = torch.as_tensor(loci, device=dev)
+                p = torch.as_tensor(minor_freq.astype(np.float32), device=dev)
+            with span("kgt.inbreed.gather"):
+                codes = columns.codes.index_select(0, index)
+            f = run_estimators(self.algorithms, codes, p)
+            with span("kgt.inbreed.fetch"):
+                f = f.cpu().numpy()
+        return InbreedEstimate(self.algorithms, f, loci, minor_freq)
+
+    def _synthetic_analysis(self, minor_freq: np.ndarray) -> bool:
         """Regenerate a diploid population with KNOWN per-genome
         coefficients from the observed locus frequencies and re-estimate
         (ExecuteInbreedingAnalysis::processSynthetic,
@@ -156,8 +285,7 @@ class InbreedAnalysis(VirtualAnalysis):
         from ..stats.inbreeding import synthetic_diploid_population
 
         expected = np.arange(0.0, 0.51, 0.05)
-        loci_mask = data.valid[0] if data.valid is not None else None
-        freqs = data.minor_freq[loci_mask] if loci_mask is not None else data.minor_freq
+        freqs = minor_freq
         n_loci = max(int(freqs.size), 100)
         syn = synthetic_diploid_population(
             n_genomes=len(expected), n_loci=n_loci, inbreeding=expected,
@@ -173,22 +301,17 @@ class InbreedAnalysis(VirtualAnalysis):
         return True
 
     def file_read_analysis(self, population) -> bool:
-        data = self._locus_data(population)
-        if data is None:
+        columns = self.prepare(population)
+        if columns is None:
             log().warn("INBREED: no variants in population")
             return True
         if self.analysis_type == "Synthetic":
-            return self._synthetic_analysis(data)
-        if self.algorithm == "ALL":
-            results = inbreeding_all(data, device=self.device)
-        else:
-            from ..stats.inbreeding import _estimate
-
-            results = {self.algorithm: _estimate(self.algorithm, data, self.device)}
-        for g, genome_id in enumerate(data.genome_ids):  # type: ignore[attr-defined]
+            return self._synthetic_analysis(self.selected_loci(columns)[1])
+        est = self.estimate(columns)
+        for g, genome_id in enumerate(columns.genome_ids):
             row = self.results.setdefault(genome_id, {})
-            for algo, values in results.items():
-                row[algo] = float(values[g])
+            for k, algo in enumerate(est.algorithms):
+                row[algo] = float(est.f[g, k])
         return True
 
     def finalize_analysis(self) -> bool:

@@ -4,16 +4,29 @@ Counterpart of kgl_gene_tpu/stats/inbreeding.py, in PyTorch. Capability
 parity with the reference inbreeding plugin's four algorithms
 (kga_analytic/kga_inbreed/kga_analysis_inbreed_calc.h:72,113-118 and
 .cpp:94-432): Ritland multi-locus, Simple (F = 1 - obs/exp heterozygosity),
-Hall expectation-maximisation, and maximum log-likelihood. Every genome is
-a row of a (genomes x loci) int32 zygosity tensor and each estimator works
-on all rows at once, in float32 (the JAX package's default precision):
+Hall expectation-maximisation, and maximum log-likelihood. The genomes'
+codes at the selected loci are one locus-major (L, G) uint8 tensor, put on
+the device once for all the estimators of a call (run_estimators), and
+each estimator works on all genomes at once, in float32 (the JAX
+package's default precision), over blocks of loci: a block holds
+loci_block(G) loci, so every temporary is bounded by _BLOCK_ELEMENTS cells
+and not by L; per-genome sums accumulate over the blocks.
 
-  - HallME iterates every row until its own stop test holds (|f - prev| <=
-    1e-4, or 1,000 steps); a row that stopped is frozen while the others
-    run on, as JAX's while_loop under vmap does.
-  - Loglikelihood scans a 65-point grid of f in chunks of grid points
-    (the whole (G, 65, L) grid would not fit at population size), takes
-    the first best point, then refines by 40 golden-section steps.
+  - HallME iterates every genome until its own stop test holds (|f -
+    prev| <= 1e-4, or 1,000 steps); a genome that stopped is frozen while
+    the others run on, as JAX's while_loop under vmap does. A step is one
+    pass over the blocks; the host reads "any genome still running" every
+    _EM_CHECK_EVERY steps.
+  - Loglikelihood scans a 65-point grid of f, in chunks of grid points
+    sized from the block (_GRID_CHUNK_ELEMENTS cells of (points, loci,
+    genomes) at most), takes the first best point, then refines by 40
+    golden-section steps.
+
+COUNTERS counts, over the process, the loci estimated (a call's L), the
+HallME steps run and the host reads of its stop test, and the
+log-likelihood evaluations (one f point for every genome); spans
+(tracing.span) name each estimator's stage, kgt.inbreed.ritland, .simple,
+.hallme and .loglik.
 
 Locus classes (kga_analysis_inbreed_freq.cpp:426-515): for each biallelic
 SNP locus with minor allele frequency p (q = 1-p), a diploid genome is
@@ -23,21 +36,28 @@ MAJOR_HOMOZYGOUS (no minor allele, first-allele freq q), MAJOR_HETEROZYGOUS
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..tracing import span
 
 __all__ = [
+    "COUNTERS",
+    "ESTIMATOR_SPANS",
     "LocusData",
+    "loci_block",
     "ritland_f",
     "simple_f",
     "hall_me_f",
     "loglikelihood_f",
     "inbreeding_all",
+    "run_estimator",
+    "run_estimators",
     "synthetic_diploid_population",
 ]
 
@@ -48,7 +68,20 @@ _EM_MAX_ITER = 1000
 _EM_CHECK_EVERY = 8        # steps between host reads of "any row still running"
 _GRID_POINTS = 65
 _GOLDEN_STEPS = 40
-_GRID_CHUNK_ELEMENTS = 1 << 25  # (G, chunk, L) float64 temporaries of 256 MB at most
+# Cells (loci x genomes) of a block: a float64 temporary of a block is 256 MB.
+_BLOCK_ELEMENTS = 1 << 25
+# Cells (grid points x loci x genomes) of one chunk of the Loglikelihood grid.
+_GRID_CHUNK_ELEMENTS = 1 << 25
+
+# Work counted over the process (as kernels.LAUNCHES counts launches).
+COUNTERS: collections.Counter = collections.Counter()
+
+ESTIMATOR_SPANS = {
+    "RitlandLocus": "kgt.inbreed.ritland",
+    "Simple": "kgt.inbreed.simple",
+    "HallME": "kgt.inbreed.hallme",
+    "Loglikelihood": "kgt.inbreed.loglik",
+}
 
 
 @dataclass
@@ -74,50 +107,88 @@ class LocusData:
         return cls(zygosity=np.asarray(view.zygosity), minor_freq=np.asarray(minor_freq))
 
 
+def loci_block(genomes: int) -> int:
+    """Loci a block of the estimators holds for `genomes` genomes."""
+    return max(1, _BLOCK_ELEMENTS // max(genomes, 1))
+
+
+def _blocks(z, p, valid, loci: Optional[int] = None):
+    """(codes, p, valid) of each block of loci: z (L, G), p as (Lb, 1), and
+    valid None (every locus), (Lb, 1) or (Lb, G)."""
+    L, G = z.shape
+    step = loci or loci_block(G)
+    for l0 in range(0, L, step):
+        vb = None if valid is None else valid[l0:l0 + step]
+        yield z[l0:l0 + step], p[l0:l0 + step, None], vb
+
+
+def _valid_loci(z, valid) -> torch.Tensor:
+    """Valid loci of each genome (G,)."""
+    L, G = z.shape
+    if valid is None:
+        return torch.full((G,), L, dtype=torch.int64, device=z.device)
+    return valid.sum(0).expand(G)
+
+
 def _first_allele_freq(z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """First-allele frequency per class: hom-major -> q, het -> p, hom-minor -> p."""
     return torch.where(z == 0, 1.0 - p, p)
 
 
+def _masked(mask, valid):
+    return mask if valid is None else mask & valid
+
+
 # --------------------------------------------------------------------------- #
-# estimators: each maps (zygosity (G, L), p (L,), valid (G, L)) -> F (G,)
+# estimators: each maps (zygosity (L, G) locus-major, p (L,), valid None,
+# (L, 1) or (L, G)) -> F (G,)
 # --------------------------------------------------------------------------- #
 def _ritland_rows(z, p, valid):
-    first = _first_allele_freq(z, p)
-    is_hom = (z == 0) | (z == 2)
-    hom_ok = is_hom & (first > _MIN_RITLAND_FREQ) & valid
-    het_ok = (z == 1) & valid
-    contrib = torch.where(hom_ok, 1.0 / torch.where(hom_ok, first, 1.0) - 1.0, 0.0)
-    contrib = contrib + torch.where(het_ok, -1.0, 0.0)
-    count = hom_ok.sum(1) + het_ok.sum(1)
-    return torch.where(count > 0, contrib.sum(1) / count, 0.0)
+    G = z.shape[1]
+    total = torch.zeros(G, dtype=p.dtype, device=z.device)
+    count = torch.zeros(G, dtype=torch.int64, device=z.device)
+    for zb, pb, vb in _blocks(z, p, valid):
+        first = _first_allele_freq(zb, pb)
+        hom_ok = _masked(((zb == 0) | (zb == 2)) & (first > _MIN_RITLAND_FREQ), vb)
+        het_ok = _masked(zb == 1, vb)
+        contrib = torch.where(hom_ok, 1.0 / torch.where(hom_ok, first, 1.0) - 1.0, 0.0)
+        total = total + (contrib - het_ok.to(contrib.dtype)).sum(0)
+        count = count + hom_ok.sum(0) + het_ok.sum(0)
+    return torch.where(count > 0, total / count, 0.0)
 
 
 def _simple_rows(z, p, valid):
-    q = 1.0 - p
-    obs_hom = (((z == 0) | (z == 2)) & valid).sum(1)
-    exp_hom = torch.where(valid, p * p + q * q, 0.0).sum(1)
-    n = valid.sum(1)
-    denom = n - exp_hom
+    G = z.shape[1]
+    obs_hom = torch.zeros(G, dtype=torch.int64, device=z.device)
+    exp_hom = torch.zeros(1, dtype=p.dtype, device=z.device)
+    for zb, pb, vb in _blocks(z, p, valid):
+        obs_hom = obs_hom + _masked((zb == 0) | (zb == 2), vb).sum(0)
+        pq = pb * pb + (1.0 - pb) * (1.0 - pb)
+        exp_hom = exp_hom + (pq if vb is None else torch.where(vb, pq, 0.0)).sum(0)
+    denom = _valid_loci(z, valid) - exp_hom
     return torch.where(denom != 0, (obs_hom - exp_hom) / denom, 0.0)
 
 
 def _hall_me_rows(z, p, valid):
-    first = _first_allele_freq(z, p)
-    is_hom = ((z == 0) | (z == 2)) & valid
-    n = valid.sum(1)
-    G = z.shape[0]
-    f = torch.full((G,), 0.25, dtype=first.dtype, device=z.device)
-    prev = torch.full((G,), 1.0, dtype=first.dtype, device=z.device)
+    G = z.shape[1]
+    n = _valid_loci(z, valid)
+    f = torch.full((G,), 0.25, dtype=p.dtype, device=z.device)
+    prev = torch.full((G,), 1.0, dtype=p.dtype, device=z.device)
     it = torch.zeros(G, dtype=torch.int32, device=z.device)
     active = torch.ones(G, dtype=torch.bool, device=z.device)
     for step in range(_EM_MAX_ITER):
-        if step % _EM_CHECK_EVERY == 0 and not bool(active.any()):
-            break
-        fc = f[:, None]
-        denom = fc + (1.0 - fc) * first
-        term = torch.where(is_hom & (denom != 0), fc / denom, 0.0)
-        new_f = torch.where(n > 0, term.sum(1) / n, 0.0)
+        if step % _EM_CHECK_EVERY == 0:
+            COUNTERS["hallme_stop_reads"] += 1
+            if not bool(active.any()):
+                break
+        COUNTERS["hallme_steps"] += 1
+        term = torch.zeros(G, dtype=p.dtype, device=z.device)
+        for zb, pb, vb in _blocks(z, p, valid):
+            first = _first_allele_freq(zb, pb)
+            is_hom = _masked((zb == 0) | (zb == 2), vb)
+            denom = f + (1.0 - f) * first
+            term = term + torch.where(is_hom & (denom != 0), f / denom, 0.0).sum(0)
+        new_f = torch.where(n > 0, term / n, 0.0)
         # a row whose stop test holds keeps its f: frozen rows do not move
         prev = torch.where(active, f, prev)
         f = torch.where(active, new_f, f)
@@ -126,22 +197,23 @@ def _hall_me_rows(z, p, valid):
     return f
 
 
-def _loglik(f, z, p, valid):
-    """Log-likelihood of f (G,) per row, or of f (G, C) at C points per row,
-    in the dtype of f."""
-    p = p.to(f.dtype)
-    first = _first_allele_freq(z, p)
-    second = torch.where(z == 1, 1.0 - p, first)
-    is_hom = (z == 0) | (z == 2)
-    if f.dim() == 2:  # (G, C) points: broadcast over a middle axis
-        f = f[:, :, None]
-        first, second, is_hom, valid = (x[:, None, :] for x in (first, second, is_hom, valid))
-    else:
-        f = f[:, None]
-    hom_prob = f * first + (1.0 - f) * first * first
-    het_prob = 2.0 * (1.0 - f) * first * second
-    prob = torch.where(is_hom, hom_prob, het_prob).clamp(_SMALL_PROB, 1.0)
-    return torch.where(valid, torch.log(prob), 0.0).sum(-1)
+def _loglik(f, z, p, valid, loci: Optional[int] = None):
+    """Log-likelihood of f (G,) for each genome, or of f (C, G) at C points
+    for each genome, in the dtype of f, summed over blocks of `loci` loci."""
+    COUNTERS["loglik_evaluations"] += 1 if f.dim() == 1 else f.shape[0]
+    total = torch.zeros_like(f)
+    fb = f[:, None, :] if f.dim() == 2 else f  # (C, 1, G): the points on a leading axis
+    for zb, pb, vb in _blocks(z, p.to(f.dtype), valid, loci):
+        first = _first_allele_freq(zb, pb)
+        second = torch.where(zb == 1, 1.0 - pb, first)
+        is_hom = (zb == 0) | (zb == 2)
+        hom_prob = fb * first + (1.0 - fb) * first * first
+        het_prob = 2.0 * (1.0 - fb) * first * second
+        logp = torch.log(torch.where(is_hom, hom_prob, het_prob).clamp(_SMALL_PROB, 1.0))
+        if vb is not None:
+            logp = torch.where(vb, logp, 0.0)
+        total = total + logp.sum(-2)
+    return total
 
 
 def _loglik_rows(z, p, valid):
@@ -156,14 +228,15 @@ def _loglik_rows(z, p, valid):
     at points up to about 5e-4 apart. The JAX package's float32 result lies
     that far from the exact maximum itself; with x64 enabled it agrees with
     this one. Returns float32, as the other estimators."""
-    G, L = z.shape
+    L, G = z.shape
     grid = torch.linspace(-1.0, 1.0, _GRID_POINTS, dtype=torch.float64, device=z.device)
-    chunk = max(1, min(_GRID_POINTS, _GRID_CHUNK_ELEMENTS // max(G * L, 1)))
+    block = min(max(L, 1), loci_block(G))
+    chunk = max(1, min(_GRID_POINTS, _GRID_CHUNK_ELEMENTS // (G * block)))
     vals = torch.cat([
-        _loglik(grid[c0:c0 + chunk].expand(G, -1), z, p, valid)
+        _loglik(grid[c0:c0 + chunk, None].expand(-1, G), z, p, valid, block)
         for c0 in range(0, _GRID_POINTS, chunk)
-    ], dim=1)
-    k = torch.argmax(vals, dim=1)  # ties: the first index, as jnp.argmax
+    ], dim=0)
+    k = torch.argmax(vals, dim=0)  # ties: the first index, as jnp.argmax
     lo = (grid[k] - 0.04).clamp(-1.0, 1.0)
     hi = (grid[k] + 0.04).clamp(-1.0, 1.0)
     gr = 0.618033988749895
@@ -183,22 +256,49 @@ _ESTIMATORS = {
 }
 
 
+def run_estimators(algorithms: Sequence[str], zygosity: torch.Tensor, minor_freq: torch.Tensor,
+                   valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """F (G, len(algorithms)) float32, a column an estimator in the order
+    given, from device tensors of the selected loci: zygosity (L, G) codes
+    (locus-major: a genome a column), minor_freq (L,) float32, valid None
+    (every locus), a per-locus (L,) mask or a per-genome (L, G) mask."""
+    if valid is not None and valid.dim() == 1:
+        valid = valid[:, None]
+    COUNTERS["loci"] += zygosity.shape[0]
+    with torch.no_grad():
+        columns = []
+        for name in algorithms:
+            with span(ESTIMATOR_SPANS[name]):
+                columns.append(_ESTIMATORS[name](zygosity, minor_freq, valid).to(torch.float32))
+        return torch.stack(columns, dim=1)
+
+
 def run_estimator(algorithm: str, zygosity: torch.Tensor, minor_freq: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
     """F per genome (G,) float32 from device tensors: zygosity (G, L) int32,
     minor_freq (L,) float32, valid (G, L) bool."""
-    with torch.no_grad():
-        return _ESTIMATORS[algorithm](zygosity, minor_freq, valid)
+    return run_estimators([algorithm], zygosity.t(), minor_freq, valid.t())[:, 0]
+
+
+def _estimate_all(algorithms: Sequence[str], data: LocusData, device=None) -> np.ndarray:
+    """(G, len(algorithms)) F from one upload of the locus data: the codes
+    as uint8, locus-major; a mask the same for every genome as one (L,)
+    mask, and none where every locus is valid."""
+    dev = resolve_device(device)
+    z = np.asarray(data.zygosity)
+    valid = np.asarray(data.valid, dtype=bool)
+    if valid.shape[0] == 0 or (valid == valid[:1]).all():
+        per_locus = valid[0] if valid.shape[0] else np.ones(z.shape[1], dtype=bool)
+        valid_t = None if per_locus.all() else torch.as_tensor(per_locus, device=dev)
+    else:
+        valid_t = torch.as_tensor(np.ascontiguousarray(valid.T), device=dev)
+    codes = torch.as_tensor(np.ascontiguousarray(z.T, dtype=np.uint8), device=dev)
+    p = torch.as_tensor(np.asarray(data.minor_freq, dtype=np.float32), device=dev)
+    return run_estimators(algorithms, codes, p, valid_t).cpu().numpy()
 
 
 def _estimate(algorithm: str, data: LocusData, device=None) -> np.ndarray:
-    dev = resolve_device(device)
-    return run_estimator(
-        algorithm,
-        torch.as_tensor(np.asarray(data.zygosity), device=dev).to(torch.int32),
-        torch.as_tensor(np.asarray(data.minor_freq, dtype=np.float32), device=dev),
-        torch.as_tensor(np.asarray(data.valid, dtype=bool), device=dev),
-    ).cpu().numpy()
+    return _estimate_all([algorithm], data, device)[:, 0]
 
 
 def ritland_f(data: LocusData, device=None) -> np.ndarray:
@@ -218,8 +318,10 @@ def loglikelihood_f(data: LocusData, device=None) -> np.ndarray:
 
 
 def inbreeding_all(data: LocusData, device=None) -> Dict[str, np.ndarray]:
-    """All four estimators per genome (the reference's algoMap)."""
-    return {name: _estimate(name, data, device) for name in _ESTIMATORS}
+    """All four estimators per genome (the reference's algoMap), from one
+    upload of the locus data."""
+    f = _estimate_all(list(_ESTIMATORS), data, device)
+    return {name: f[:, k] for k, name in enumerate(_ESTIMATORS)}
 
 
 # --------------------------------------------------------------------------- #

@@ -15,7 +15,11 @@ Names start with `kgt.`, the prefix of the port's C entry points:
       .rerun, .assemble): the all-pairs matrix (parallel/mesh.py
       sharded_pairwise_distances, ops/edit_distance.py gathered_pairs);
   kgt.mutate (.capture, .dispatch, .fetch, .unpack): the product pass
-      (analysis/lib_seqmutation.py MutateGenes.mutate_transcripts).
+      (analysis/lib_seqmutation.py MutateGenes.mutate_transcripts);
+  kgt.inbreed (.select, .upload, .gather, .ritland, .simple, .hallme,
+      .loglik, .fetch): one INBREED estimate, and kgt.inbreed.prepare, a
+      population put on the device once (analysis/inbreed_analysis.py,
+      the estimators' stages in stats/inbreeding.py run_estimators).
 """
 
 from __future__ import annotations
