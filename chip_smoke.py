@@ -6,7 +6,7 @@
 Builds the kernels under kgl_gene_tpu_torch/csrc (nvcc) and the native
 host library kgl_gene_tpu_torch/native/kgt_native.cpp (g++), holds each
 kernel against its plain PyTorch version on the card (exact equality),
-and drives nine paths, each with the launch counts set to 0 just before
+and drives ten paths, each with the launch counts set to 0 just before
 and read just after where it launches a kernel:
 
   1. the forward step (kgl_gene_tpu_torch.ops.pipeline.make_forward_step)
@@ -153,7 +153,17 @@ and read just after where it launches a kernel:
      the launches a chunk alone, within its deadline. It prints each
      rank's device, backend, copies through the host and launches, the
      step over the mesh beside the one-card step in turns, the
-     32,768-base pair beside B3, and the phase's seconds.
+     32,768-base pair beside B3, and the phase's seconds;
+ 10. kernel loglik (phase 3j, csrc/loglik.cu): the Loglikelihood
+     estimator against its plain version (stats/inbreeding.py
+     _loglik_rows_plain, eager float64) on the card, on ragged shapes with
+     every mask form, codes past 2 and the int32 view run_estimator hands
+     on, then at the INBREED cell's 2,504 genomes x 25,000 loci drawn from
+     a seed; then one InbreedAnalysis.estimate, counts from 0. It fails
+     unless every F lies within 1e-4 of the plain version's, a call
+     launches loglik 41 times and nothing else, and the estimate counts
+     145 evaluations and 41 passes. It prints the kernel's time beside its
+     bound and the plain version's, and a {"loglik": {...}} line.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -202,8 +212,8 @@ sizes, checks and the MICA kernel's times and bounds), one
 {"checkpoint_local": {...}} (phase 3g's seconds and checks), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
 one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
-{"kernels": [...]} of fourteen rows (`local` at B = 256 against the shared
-reference and `local_pool` over the 32,640 pairs, each at 3,000 and at
+{"loglik": {...}} (phase 3j's checks), one {"kernels": [...]} of fifteen
+rows (`local` at B = 256 against the shared reference and `local_pool` over the 32,640 pairs, each at 3,000 and at
 2,181 bases with the layout the rule took in `geometry`, are the local
 kernel's; the rows of
 B1, B2 and B3 also carry their launches
@@ -216,7 +226,8 @@ holds the middle chunk of the 32,768-base pair from its DP state and
 carries the first design's time in the same windows; wavefront_chunks,
 the cooperative route, times 8 chunks of that pair in one launch and
 carries the whole pair's wall split into the launch's device time and the
-host's rest), the
+host's rest; loglik's bound_ms is the larger of its byte and float64
+floors, beside each in bytes_bound_ms and fp64_bound_ms), the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -4502,6 +4513,167 @@ def phase_multidevice(dev, seqs, lens, matrix, errs):
                 f"B3 {o['long32_b3_ms']:.3f} ms")
     return out, rows, launches
 
+# Phase 3j: kernel `loglik` (csrc/loglik.cu) at the INBREED cell's shape,
+# 2,504 genomes x 25,000 loci (hs-1kg-chr22: LociiCount 25,000), codes
+# drawn from LOGLIK_SEED at F from the cell's list; small shapes and every
+# mask form first. Its bound: the codes read once a pass (41 passes) against
+# the card's bytes a second, or the float64 instructions the design cannot
+# do without (an add a cell and grid point, an fma and a multiply a cell and
+# step point) at FP64_LANES_PER_SM lanes an SM a cycle, whichever is larger.
+LOGLIK_SHAPE = (25_000, 2_504)
+LOGLIK_SEED = 23
+LOGLIK_LIMIT = 1e-4  # reference/inbreed.py TOLERANCE["Loglikelihood"]
+LOGLIK_F = ((0.0, 0.7), (1 / 64, 0.1), (1 / 16, 0.1), (1 / 8, 0.05), (1 / 4, 0.03), (1 / 2, 0.02))
+LOGLIK_PASSES, LOGLIK_GRID_POINTS, LOGLIK_STEP_POINTS = 41, 65, 80
+FP64_LANES_PER_SM = 64
+# The estimate path: InbreedAnalysis over LOGLIK_PATH_VARIANTS variants of
+# LOGLIK_SHAPE's genomes, every LOGLIK_PATH_SPACING-th one kept.
+LOGLIK_PATH_VARIANTS, LOGLIK_PATH_SPACING = 40_000, 4
+
+
+def loglik_codes(L, G, seed, dev):
+    """(codes (L, G) uint8, p (L,) float32) on the card from the seed: p
+    uniform in [0.05, 0.5], each genome's F drawn from LOGLIK_F, a genotype
+    two draws of the alternate allele, one draw twice with probability F."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    values = torch.tensor([v for v, _w in LOGLIK_F], dtype=torch.float32, device=dev)
+    weights = torch.tensor([w for _v, w in LOGLIK_F], dtype=torch.float32, device=dev)
+    f = values[torch.multinomial(weights, G, replacement=True, generator=gen)]
+    p = 0.05 + 0.45 * torch.rand(L, generator=gen, device=dev)
+    first = torch.rand((L, G), generator=gen, device=dev) < p[:, None]
+    second = torch.where(torch.rand((L, G), generator=gen, device=dev) < f, first,
+                         torch.rand((L, G), generator=gen, device=dev) < p[:, None])
+    return (first.to(torch.uint8) + second.to(torch.uint8)), p
+
+
+def loglik_cases(dev):
+    """(name, z, p, valid) on the card: ragged genome and locus counts,
+    every mask form run_estimators passes, codes past 2, and the int32
+    transposed view run_estimator hands on."""
+    import torch
+
+    cases = []
+    for L, G in ((1, 1), (37, 11), (260, 33), (3_000, 257), (5_003, 1)):
+        z, p = loglik_codes(L, G, LOGLIK_SEED + L + G, dev)
+        z[:, 0] = torch.where(torch.rand(L, device=dev) < p, 2, 0)  # all homozygous: f near 1
+        locus = torch.rand(L, device=dev) < 0.8
+        genome = torch.rand((L, G), device=dev) < 0.8
+        genome[:, -1] = False  # a genome with no valid locus: a grid tie
+        cases += [(f"{L}x{G} none", z, p, None),
+                  (f"{L}x{G} per locus", z, p, locus[:, None]),
+                  (f"{L}x{G} per locus, broadcast", z, p, locus[:, None].expand(L, G)),
+                  (f"{L}x{G} per genome", z, p, genome)]
+    z, p = loglik_codes(400, 40, LOGLIK_SEED, dev)
+    z[::7, ::3] = 3
+    z[::11, ::5] = 255
+    cases.append(("400x40 codes past 2", z, p, None))
+    z, p = loglik_codes(300, 20, LOGLIK_SEED + 1, dev)
+    cases.append(("300x20 int32 transposed", z.t().to(torch.int32).contiguous().t(), p, None))
+    return cases
+
+
+def phase_loglik(dev, errs):
+    """Kernel `loglik` against the plain version on the card (stats/
+    inbreeding.py _loglik_rows_plain, eager float64): the cases of
+    loglik_cases, then LOGLIK_SHAPE; its time beside its bound and the plain
+    version's; then an INBREED estimate, counts from 0, which must launch
+    `loglik` LOGLIK_PASSES times and nothing else, count 145 evaluations and
+    LOGLIK_PASSES passes, and give the plain version's Loglikelihood F.
+    Returns (the kernels row, launches on the estimate path, summary)."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.analysis.inbreed_analysis import InbreedAnalysis
+    from kgl_gene_tpu_torch.app.runtime import ParameterMap
+    from kgl_gene_tpu_torch.stats import inbreeding as inb
+
+    def gap(name, got, want):
+        d = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        if got.shape != want.shape or not d <= LOGLIK_LIMIT:
+            raise AssertionError(f"loglik {name}: |dF| {d} over {LOGLIK_LIMIT}")
+        return d
+
+    worst, cases = 0.0, loglik_cases(dev)
+    for name, z, p, valid in cases:
+        worst = max(worst, gap(name, inb._loglik_rows(z, p, valid),
+                               inb._loglik_rows_plain(z, p, valid)))
+    torch.cuda.synchronize()
+    log(f"  {len(cases)} small cases: largest |dF| {worst:.3e}")
+    del cases
+
+    L, G = LOGLIK_SHAPE
+    z, p = loglik_codes(L, G, LOGLIK_SEED, dev)
+    kernel = lambda: inb._loglik_rows(z, p, None)  # noqa: E731
+    plain = lambda: inb._loglik_rows_plain(z, p, None)  # noqa: E731
+    want = plain()
+    full = gap(f"{L}x{G}", kernel(), want)
+    errs["loglik"] = max(worst, full)
+    kernels.reset_launches()
+    kernel()
+    launches_a_call = dict(kernels.LAUNCHES)
+    if launches_a_call != {"loglik": LOGLIK_PASSES}:
+        raise AssertionError(f"loglik: a call launched {launches_a_call}")
+    ms = time_cuda(kernel, 10)
+    try:
+        device_ms = time_device([kernel], 4)
+    except Exception as exc:  # noqa: BLE001 - the events' reading stands alone
+        log(f"  loglik: no CUDA graph of a call ({type(exc).__name__}: {exc})")
+        device_ms = None
+    plain_ms = time_cuda(plain, 1, windows=2)
+    bytes_read = LOGLIK_PASSES * G * L
+    fp64 = (LOGLIK_GRID_POINTS + 2 * LOGLIK_STEP_POINTS) * G * L
+    t_bytes = bytes_read / MEM_BYTES_PER_S * 1e3
+    t_fp64 = fp64 / issue_rate(FP64_LANES_PER_SM) * 1e3
+    bound_ms = max(t_bytes, t_fp64)
+    log(f"  {L} loci x {G} genomes: |dF| {full:.3e}; kernel {ms:.4f} ms (device "
+        f"{device_ms if device_ms is None else round(device_ms, 4)}), bound {bound_ms:.4f} ms "
+        f"(bytes {t_bytes:.4f}, float64 {t_fp64:.4f}), plain {plain_ms:.2f} ms; "
+        f"{LOGLIK_PASSES} launches a call")
+
+    # The estimate path: INBREED's own stages over columns on the card.
+    V = LOGLIK_PATH_VARIANTS
+    codes, _p = loglik_codes(V, G, LOGLIK_SEED + 2, dev)
+    af = codes.sum(1, dtype=torch.int64).cpu().numpy() / (2.0 * G)
+    analysis = InbreedAnalysis(dev)
+    params = {"Algorithm": "ALL", "MinAF": "0.05", "SamplingDistance": str(LOGLIK_PATH_SPACING)}
+    if not analysis.initialize_analysis(".", [ParameterMap("INBREED", {
+            k: [v] for k, v in params.items()})], None):
+        raise AssertionError("loglik: INBREED refused its parameters")
+    columns = analysis.prepare_columns(codes, np.arange(V, dtype=np.int64), np.zeros(V, np.int32),
+                                       np.ones(V, bool), [f"G{g}" for g in range(G)], {"ALL": af})
+    analysis.estimate(columns, "ALL")  # warm
+    before = dict(inb.COUNTERS)
+    kernels.reset_launches()
+    est = analysis.estimate(columns, "ALL")
+    torch.cuda.synchronize()
+    path = dict(kernels.LAUNCHES)
+    counted = {k: inb.COUNTERS[k] - before.get(k, 0)
+               for k in ("loglik_evaluations", "loglik_passes")}
+    if path != {"loglik": LOGLIK_PASSES} or counted != {
+            "loglik_evaluations": LOGLIK_GRID_POINTS + LOGLIK_STEP_POINTS,
+            "loglik_passes": LOGLIK_PASSES}:
+        raise AssertionError(f"loglik: the estimate launched {path}, counted {counted}")
+    index = torch.as_tensor(est.loci, device=dev)
+    p_sel = torch.as_tensor(est.minor_freq.astype(np.float32), device=dev)
+    path_gap = gap("estimate path", torch.as_tensor(est.f[:, est.algorithms.index("Loglikelihood")]),
+                   inb._loglik_rows_plain(codes.index_select(0, index), p_sel, None).cpu())
+    log(f"  InbreedAnalysis.estimate over {len(est.loci)} loci: launches {path}, counters "
+        f"{counted}, Loglikelihood |dF| against the plain version {path_gap:.3e}")
+    row = {"name": "loglik", "route": "CUDA", "source": "kgl_gene_tpu_torch/csrc/loglik.cu",
+           "replaces": "none (kgl_gene_tpu/stats/inbreeding.py:128 _loglik_row is XLA)",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_fp64 else "float64 operations",
+           "library_ms": None, "bytes_bound_ms": t_bytes, "fp64_bound_ms": t_fp64,
+           "issue_bound_ms": None, "max_abs_err_f": errs["loglik"], "shape": [L, G],
+           **({"device_ms": device_ms} if device_ms is not None else {})}
+    summary = {"small_cases_max_df": worst, "full_max_df": full, "estimate_loci": len(est.loci),
+               "estimate_launches": path, "estimate_counters": counted,
+               "estimate_max_df": path_gap}
+    return row, path["loglik"], summary
+
 
 def main() -> int:
     try:
@@ -4523,7 +4695,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
                           "myers_pool", "walk", "mica", "local", "local_pool",
-                          "wavefront_chunk", "wavefront_chunks"), 0)
+                          "wavefront_chunk", "wavefront_chunks", "loglik"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -4634,6 +4806,13 @@ def main() -> int:
         launches.update(chunk_launches)
         log(f"  phase 3i: {multidevice['phase_s']:.1f} s")
 
+        phase = "kernel loglik: the INBREED estimators' Loglikelihood"
+        log(f"phase 3j: {phase}")
+        t0 = time.perf_counter()
+        loglik_row, launches["loglik"], loglik = phase_loglik(dev, errs)
+        loglik["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3j: {loglik['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -4642,6 +4821,7 @@ def main() -> int:
         rows.append(mica_row)
         rows += phase_local_times(dev, local_state, errs)
         rows += chunk_kernel_rows
+        rows.append(loglik_row)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -4677,7 +4857,8 @@ def main() -> int:
                if r["name"] in ("translate", "myers", "wavefront") else {}),
             **{key: val for key, val in r.items()
                if ("_ms" in key or key.startswith("ms_") or key.endswith("_ns")
-                   or key.startswith("latency_") or key in ("plain_pairs", "geometry"))
+                   or key.startswith("latency_")
+               or key in ("plain_pairs", "geometry", "shape", "max_abs_err_f"))
                and key not in ("plain_ms", "bound_ms", "library_ms", "issue_bound_ms")},
         })
     print(json.dumps({"device_functions": device_functions}))
@@ -4687,6 +4868,7 @@ def main() -> int:
     print(json.dumps({"checkpoint_local": checkpoint_local}))
     print(json.dumps({"package": package}))
     print(json.dumps({"multidevice": multidevice}))
+    print(json.dumps({"loglik": loglik}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -95,6 +95,13 @@ _SIGNATURES = {
     # (scripts/torch_kernel_bodies.py)
     "kgt_wavefront_chunk_lane": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _P),
+    # codes, G, L, af, valid, mask (0 none, 1 per locus, 2 per genome),
+    # chunk_loci, terms, logs, partial, tickets, lo, hi, stream: the
+    # Loglikelihood's tables, its grid and first bracket (two kernels)
+    "kgt_loglik_grid": (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # codes, G, L, valid, mask, chunk_loci, terms, partial, tickets, lo, hi,
+    # out (null but on the last step), stream: one golden-section step
+    "kgt_loglik_step": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
     # by chip_smoke.py for the walk's latency bound
     "kgt_chase": (_P, _I, _I, _P, _P),
@@ -113,6 +120,9 @@ _SIGNATURES = {
     # warps, H -> blocks of kgt_wavefront_chunks the current device holds at
     # once (-1: a geometry the kernel refuses); no launch
     "kgt_wavefront_chunks_blocks": (_I, _I),
+    # kind (0 the grid, 1 a step), mask -> blocks of the Loglikelihood
+    # kernel an SM of the current device holds; no launch
+    "kgt_loglik_blocks": (_I, _I),
     # band_k -> 1 (warp body) or 0 (block); no launch
     "kgt_banded_body": (_I,),
     "kgt_banded_choices_body": (_I,),

@@ -17,16 +17,21 @@ and not by L; per-genome sums accumulate over the blocks.
     the others run on, as JAX's while_loop under vmap does. A step is one
     pass over the blocks; the host reads "any genome still running" every
     _EM_CHECK_EVERY steps.
-  - Loglikelihood scans a 65-point grid of f, in chunks of grid points
-    sized from the block (_GRID_CHUNK_ELEMENTS cells of (points, loci,
-    genomes) at most), takes the first best point, then refines by 40
-    golden-section steps.
+  - Loglikelihood scans a 65-point grid of f, takes the first best point,
+    then refines by 40 golden-section steps, the objective in float64. On
+    the card it is kernel `loglik` (csrc/loglik.cu): 41 passes over the
+    codes, one launch each, the grid from a table of per-locus
+    log-probabilities and both points of a step in one pass. A CPU tensor
+    takes the plain version, _loglik_rows_plain: the same search in eager
+    float64 over the blocks, the grid in chunks of points sized from the
+    block (_GRID_CHUNK_ELEMENTS cells of (points, loci, genomes) at most).
 
 COUNTERS counts, over the process, the loci estimated (a call's L), the
-HallME steps run and the host reads of its stop test, and the
-log-likelihood evaluations (one f point for every genome); spans
-(tracing.span) name each estimator's stage, kgt.inbreed.ritland, .simple,
-.hallme and .loglik.
+HallME steps run and the host reads of its stop test, the log-likelihood
+evaluations (one f point for every genome: 145 a call) and the
+log-likelihood passes over the codes (a block of the plain version's
+evaluations, or a launch of the kernel); spans (tracing.span) name each
+estimator's stage, kgt.inbreed.ritland, .simple, .hallme and .loglik.
 
 Locus classes (kga_analysis_inbreed_freq.cpp:426-515): for each biallelic
 SNP locus with minor allele frequency p (q = 1-p), a diploid genome is
@@ -43,7 +48,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import kernels, resolve_device
 from ..tracing import span
 
 __all__ = [
@@ -51,6 +56,7 @@ __all__ = [
     "ESTIMATOR_SPANS",
     "LocusData",
     "loci_block",
+    "loglik_geometry",
     "ritland_f",
     "simple_f",
     "hall_me_f",
@@ -72,6 +78,14 @@ _GOLDEN_STEPS = 40
 _BLOCK_ELEMENTS = 1 << 25
 # Cells (grid points x loci x genomes) of one chunk of the Loglikelihood grid.
 _GRID_CHUNK_ELEMENTS = 1 << 25
+# Kernel `loglik` (csrc/loglik.cu, LL_*): genomes a block (a tile), grid
+# blocks a tile and chunk (each a third of the points), loci a grid block
+# stages the log table of at a time, probabilities multiplied before one log.
+LOGLIK_THREADS = 256
+LOGLIK_POINT_GROUPS = 3
+LOGLIK_GROUP_POINTS = 22  # a grid block's points, 66 with the pad
+LOGLIK_TABLE_LOCI = 16
+LOGLIK_GROUP = 16
 
 # Work counted over the process (as kernels.LAUNCHES counts launches).
 COUNTERS: collections.Counter = collections.Counter()
@@ -204,6 +218,7 @@ def _loglik(f, z, p, valid, loci: Optional[int] = None):
     total = torch.zeros_like(f)
     fb = f[:, None, :] if f.dim() == 2 else f  # (C, 1, G): the points on a leading axis
     for zb, pb, vb in _blocks(z, p.to(f.dtype), valid, loci):
+        COUNTERS["loglik_passes"] += 1
         first = _first_allele_freq(zb, pb)
         second = torch.where(zb == 1, 1.0 - pb, first)
         is_hom = (zb == 0) | (zb == 2)
@@ -216,7 +231,7 @@ def _loglik(f, z, p, valid, loci: Optional[int] = None):
     return total
 
 
-def _loglik_rows(z, p, valid):
+def _loglik_rows_plain(z, p, valid):
     """MLE of f in [-1, 1]: coarse grid then golden-section refinement
     (replaces the nlopt LN_NELDERMEAD call, kga_analysis_inbreed_calc.cpp:131).
 
@@ -246,6 +261,99 @@ def _loglik_rows(z, p, valid):
         b_better = _loglik(a, z, p, valid) < _loglik(b, z, p, valid)
         lo, hi = torch.where(b_better, a, lo), torch.where(b_better, hi, b)
     return ((lo + hi) / 2.0).to(torch.float32)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def loglik_geometry(G: int, L: int, sms: int, grid_blocks: int,
+                    step_blocks: int) -> tuple[int, int, int]:
+    """(tiles, grid chunk loci, step chunk loci) of kernel `loglik` for G
+    genomes and L loci on a card of `sms` SMs that holds grid_blocks blocks
+    of the grid pass and step_blocks of a step an SM: a tile is
+    LOGLIK_THREADS genomes, and a tile's loci are cut into as many chunks as
+    keep every block of a pass on the card at once (one wave; the grid has
+    LOGLIK_POINT_GROUPS blocks a tile and chunk), a grid chunk a multiple of
+    LOGLIK_TABLE_LOCI loci and a step chunk of LOGLIK_GROUP."""
+    tiles = _ceil_div(G, LOGLIK_THREADS)
+
+    def chunk_loci(blocks_an_sm: int, per_chunk: int, unit: int) -> int:
+        chunks = max(1, sms * blocks_an_sm // (tiles * per_chunk))
+        return max(unit, _ceil_div(_ceil_div(L, chunks), unit) * unit)
+
+    return (tiles, chunk_loci(grid_blocks, LOGLIK_POINT_GROUPS, LOGLIK_TABLE_LOCI),
+            chunk_loci(step_blocks, 1, LOGLIK_GROUP))
+
+
+def _mask_form(valid):
+    """(mask, bool tensor) as kernel `loglik` takes a mask: 0 and None where
+    every cell counts, 1 and (L,) where the mask is a locus's (given as (L,),
+    (L, 1) or broadcast over the genomes with stride 0), 2 and (L, G)."""
+    if valid is None:
+        return 0, None
+    if valid.dim() == 2 and valid.shape[1] > 1 and valid.stride(1) != 0:
+        return 2, valid.to(torch.bool).contiguous()
+    return 1, (valid if valid.dim() == 1 else valid[:, 0]).to(torch.bool).contiguous()
+
+
+# (device index, mask) -> (SMs, blocks of the grid pass an SM, of a step)
+_BLOCKS_AN_SM: Dict[tuple, tuple] = {}
+
+
+def _loglik_rows_kernel(z, p, valid):
+    """_loglik_rows_plain's result from kernel `loglik`: the grid pass, then
+    40 step passes, each counted as a pass and its points as evaluations.
+    z (L, G) codes (taken as uint8), p (L,) AF (taken as float32), valid as
+    run_estimators passes it. Raises unless the tensors lie on the card."""
+    L, G = z.shape
+    out = torch.empty(G, dtype=torch.float32, device=z.device)
+    codes = z if z.dtype == torch.uint8 else z.to(torch.uint8)
+    codes, af = codes.contiguous(), p.to(torch.float32).contiguous()
+    mask, mask_t = _mask_form(valid)
+    kernels.check_args(torch.uint8, codes=codes)
+    kernels.check_args(torch.float32, af=af)
+    if G == 0:
+        return out
+    dev = z.device
+    key = (dev.index, mask)
+    if key not in _BLOCKS_AN_SM:
+        with torch.cuda.device(dev):
+            lib = kernels.library()
+            _BLOCKS_AN_SM[key] = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  lib.kgt_loglik_blocks(0, mask), lib.kgt_loglik_blocks(1, mask))
+    tiles, grid_loci, step_loci = loglik_geometry(G, L, *_BLOCKS_AN_SM[key])
+    grid_chunks, step_chunks = (max(1, _ceil_div(L, n)) for n in (grid_loci, step_loci))
+    terms = torch.empty((L, 5, 2), dtype=torch.float64, device=dev)
+    logs = torch.empty((L, 4, LOGLIK_POINT_GROUPS * LOGLIK_GROUP_POINTS), dtype=torch.float64,
+                       device=dev)
+    partial = torch.empty(max(grid_chunks * _GRID_POINTS, step_chunks * 2) * G,
+                          dtype=torch.float64, device=dev)
+    bracket = torch.empty((2, G), dtype=torch.float64, device=dev)
+    tickets = torch.zeros(tiles, dtype=torch.int32, device=dev)
+    valid_ptr = None if mask_t is None else mask_t.data_ptr()
+    kernels.launch("loglik", "kgt_loglik_grid", dev, codes.data_ptr(), G, L, af.data_ptr(),
+                   valid_ptr, mask, grid_loci, terms.data_ptr(), logs.data_ptr(),
+                   partial.data_ptr(), tickets.data_ptr(), bracket[0].data_ptr(),
+                   bracket[1].data_ptr())
+    COUNTERS["loglik_evaluations"] += _GRID_POINTS
+    COUNTERS["loglik_passes"] += 1
+    for step in range(_GOLDEN_STEPS):
+        kernels.launch("loglik", "kgt_loglik_step", dev, codes.data_ptr(), G, L, valid_ptr,
+                       mask, step_loci, terms.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
+                       bracket[0].data_ptr(), bracket[1].data_ptr(),
+                       out.data_ptr() if step == _GOLDEN_STEPS - 1 else None)
+        COUNTERS["loglik_evaluations"] += 2
+        COUNTERS["loglik_passes"] += 1
+    return out
+
+
+def _loglik_rows(z, p, valid):
+    """The Loglikelihood estimator: the plain version for a CPU tensor,
+    kernel `loglik` for any other (which raises off the card)."""
+    if z.device.type == "cpu":
+        return _loglik_rows_plain(z, p, valid)
+    return _loglik_rows_kernel(z, p, valid)
 
 
 _ESTIMATORS = {
