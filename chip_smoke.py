@@ -82,10 +82,8 @@ and read just after where it launches a kernel:
      SimilarityLin, and OntologyDatabase on the full OBO with the GAF cut
      to 300 genes passes self_test and gives a 32-gene matrix. It prints
      the host stages, the kernel's time (CUDA events and a graph replay) on
-     the path's compact rows and through the padded wrapper, and the first
-     design (kgt_mica_tiles, held equal; scripts/torch_kernel_bodies.py)
-     in the same windows, its kernel on rows sorted before the window and
-     its wrapper with the sort, beside the byte and merge issue bounds (the
+     the path's compact rows and through the padded wrapper in the same
+     windows, beside the byte and merge issue bounds (the
      merge steps each pair's two real lists need, counted by mica_work, at
      MICA_STEP_OPS instructions at the rate an SM dispatches instructions)
      and the design's own count (the warp rounds' lane slots at the merge
@@ -188,9 +186,7 @@ back-to-back walks find them); and the same with the new lines outside the
 last 50 MB that B4 wrote at the device-memory hop (cold, each walk right
 after a fresh B4, as reference_cigars runs it); the latencies come from a
 pointer chase of one thread (csrc/chase.cu) over 16 KB, 8 MB and 1 GB.
-The walk is timed warm and cold beside its first design
-(kgt_walk_pair_major: pair-major tapes, every trip; launched from
-scripts/torch_kernel_bodies.py).
+The walk is timed warm and cold.
 
 Then it times the step, the family path and each kernel; the family
 path's kernels (B5, B1's pool, B4, the walk) and B3 are first held against
@@ -220,10 +216,9 @@ B1, B2 and B3 also carry their launches
 in the product path's SNP and indel steps and in the band-0 indel step;
 the mica row's bound_ms is the larger of its byte floor and its merge
 issue floor, and it carries design_issue_ms; the walk's carries
-cold_ms, latency_bound_ms, cold_latency_bound_ms and its first design's
-times; wavefront_chunk's carries dispatch_bound_ms beside issue_bound_ms,
-holds the middle chunk of the 32,768-base pair from its DP state and
-carries the first design's time in the same windows; wavefront_chunks,
+cold_ms, latency_bound_ms and cold_latency_bound_ms; wavefront_chunk's
+carries dispatch_bound_ms beside issue_bound_ms and holds the middle
+chunk of the 32,768-base pair from its DP state; wavefront_chunks,
 the cooperative route, times 8 chunks of that pair in one launch and
 carries the whole pair's wall split into the launch's device time and the
 host's rest; loglik's bound_ms is the larger of its byte and float64
@@ -1220,7 +1215,7 @@ class HostDPCounter:
 
 class ResultCapture:
     """Keeps what lib_seqmutation's function `name` returns while the block
-    runs (the family analysis' all-pairs matrices or gathered distances)."""
+    runs (the family analysis' all-pairs matrices)."""
 
     def __init__(self, name):
         self.name = name
@@ -1785,35 +1780,24 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
                      plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=ops))
 
     # The walk over those codes, at the tape length reference_cigars gives
-    # it, beside its first design (kgt_walk_pair_major; reachable
-    # from scripts/torch_kernel_bodies.py only). Its work depends on the
-    # data: the bound counts one 32-byte sector read for each live step of
-    # each pair and the tapes written once.
+    # it. Its work depends on the data: the bound counts one 32-byte sector
+    # read for each live step of each pair and the tapes written once.
     steps = walk_steps(len(ref), lens, k)
-    bodies = kernel_bodies()
     walk = functools.partial(tb_walk, codes, rl, plens, band_k=k, max_steps=steps)
-    old_walk = functools.partial(bodies.walk_pair_major, codes, rl, plens, band_k=k,
-                                 max_steps=steps)
     walk_plain = functools.partial(tb_walk_plain, codes, rl, plens, band_k=k, max_steps=steps)
     got, want = walk(), walk_plain()
-    old_got = old_walk()
     errs["walk"] = max(errs["walk"],
                        exact(f"walk ops (B={n}, k={k}, {steps} steps, the family's codes)",
                              got[0], want[0]),
-                       exact("walk counts, the same", got[1], want[1]),
-                       exact("the first design's walk ops, the same", old_got[0], want[0]),
-                       exact("the first design's walk counts, the same", old_got[1], want[1]))
-    del old_got
+                       exact("walk counts, the same", got[1], want[1]))
     live = int((got[0] != 0).sum())
-    ms, old_ms = time_cuda_turns([walk, old_walk], 20, windows=3)
-    d_ms, old_d_ms = time_device([walk], 10), time_device([old_walk], 10)
+    ms = time_cuda(walk, 20, windows=3)
+    d_ms = time_device([walk], 10)
     p_ms = time_cuda(walk_plain, 1, windows=3, warm=False)
     # As reference_cigars runs it: each walk right after a fresh B4 over
     # the same inputs, which leaves the L2 holding the last rows B4 wrote.
-    cold_ms, old_cold_ms = time_after(
-        choices, [lambda c: tb_walk(c, rl, plens, band_k=k, max_steps=steps),
-                  lambda c: bodies.walk_pair_major(c, rl, plens, band_k=k, max_steps=steps)],
-        WALK_COLD_REPS)
+    cold_ms, = time_after(choices, [lambda c: tb_walk(c, rl, plens, band_k=k, max_steps=steps)],
+                          WALK_COLD_REPS)
     b_ms, by = bound(20 * live, 32 * live + n * steps * 5 + 2 * n * 4)
     # Its latency bounds, from the card's load latencies (load_latency_ns):
     # each live step's byte is a load whose address the step before
@@ -1826,8 +1810,7 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     exact("walk of the bound's pair alone, the same tapes", one()[0], got[0][worst:worst + 1])
     log(f"  walk kernel B={n}, k={k}, {steps} steps, {live} live steps ({live / n:.1f} a pair): "
         f"{ms:.6f} ms host-inclusive, {d_ms:.6f} ms device, {cold_ms:.6f} ms right after B4; "
-        f"the first design (pair-major tapes, every trip) {old_ms:.6f} / {old_d_ms:.6f} / "
-        f"{old_cold_ms:.6f} ms; plain PyTorch loop {p_ms:.6f} ms; load latency L1 "
+        f"plain PyTorch loop {p_ms:.6f} ms; load latency L1 "
         f"{lat['l1_ns']:.2f} ns, L2 {lat['l2_ns']:.2f} ns, device memory {lat['dram_ns']:.2f} ns "
         f"(pointer chase); latency bound {latency_ms:.6f} ms warm ({latency_ms / d_ms:.1%} of the "
         f"device time), {cold_latency_ms:.6f} ms right after B4 ({cold_latency_ms / cold_ms:.1%});"
@@ -1836,9 +1819,7 @@ def phase_family_times(dev, records, ref, seqs, lens, matrix, errs):
     rows.append(dict(name="walk", source="kgl_gene_tpu_torch/csrc/walk.cu",
                      replaces="kgl_gene_tpu/ops/traceback.py:45",
                      shape=f"B={n}, k={k}, {steps} steps, {live} live", ms=ms, device_ms=d_ms,
-                     cold_ms=cold_ms, pair_major_body_ms=old_ms,
-                     pair_major_body_device_ms=old_d_ms, pair_major_body_cold_ms=old_cold_ms,
-                     plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live,
+                     cold_ms=cold_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=by, int_ops=20 * live,
                      latency_bound_ms=latency_ms, cold_latency_bound_ms=cold_latency_ms,
                      l1_latency_ns=lat["l1_ns"], l2_latency_ns=lat["l2_ns"],
                      dram_latency_ns=lat["dram_ns"],
@@ -1969,7 +1950,7 @@ def phase_checkpoint_local(dev, workdir, records, ref, errs):
     torch.cuda.synchronize()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    with ResultCapture("gathered_pairs") as captured:
+    with ResultCapture("pairwise_distance_matrix") as captured:
         dist = fam.reference_distances()
         t1 = time.perf_counter()
         n_ref = kernels.LAUNCHES["local"]
@@ -1989,7 +1970,8 @@ def phase_checkpoint_local(dev, workdir, records, ref, errs):
     n = len(distinct)
     iu, ju = np.triu_indices(n, k=1)
     P = len(iu)
-    d_kernel = captured.results[0]
+    local_matrix = captured.results[0]
+    d_kernel = local_matrix[iu, ju].astype(np.int32)
     log(f"  {n} distinct mutants, {P} pairs: reference_distances "
         f"{out['reference_distances_s'] * 1e3:.3f} ms, distance_tree_newick "
         f"{out['distance_tree_newick_s'] * 1e3:.3f} ms")
@@ -2028,11 +2010,12 @@ def phase_checkpoint_local(dev, workdir, records, ref, errs):
     del parts
     labels = [g[0] if len(g) == 1 else f"{g[0]}+{len(g) - 1}"
               for g in fam.distinct_sequences().values()]
-    matrix = np.zeros((n, n))
-    matrix[iu, ju] = d_kernel
-    matrix[ju, iu] = d_kernel
+    upper = np.triu(local_matrix, 1)
+    errs["local_pool"] = max(errs["local_pool"], exact(
+        "local all-pairs matrix vs its upper triangle mirrored (symmetric, zero diagonal)",
+        torch.as_tensor(local_matrix), torch.as_tensor(upper + upper.T)))
     same("local distance_tree_newick vs UPGMA of its matrix", tree,
-         newick(upgma_tree(matrix, labels)))
+         newick(upgma_tree(local_matrix, labels)))
     rng = np.random.default_rng(SEED + 7)
     for k in rng.choice(P, LOCAL_ORACLE_PAIRS, replace=False):
         a, b = seqs[iu[k], : lens[iu[k]]], seqs[ju[k], : lens[ju[k]]]
@@ -3240,20 +3223,6 @@ def mica_work(ids, dev, tile=MICA_TILE, rows=1024):
     return float(least), float(slots)
 
 
-def kernel_bodies():
-    """scripts/torch_kernel_bodies.py as a module: the first designs of the
-    MICA kernel and of the walk are launched from there. The script imports nothing of this one
-    at its top, so loading it here runs no second copy."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
-                        "torch_kernel_bodies.py")
-    spec = importlib.util.spec_from_file_location("torch_kernel_bodies", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def phase_ontology(dev, workdir, errs):
     """Phase 3f: GAF annotation, the GO stack and the device MICA / Lin at
     GO's term count, on write_go_obo's synthetic shape. Returns (the ontology line's dict, the mica kernel row, the
@@ -3268,7 +3237,7 @@ def phase_ontology(dev, workdir, errs):
     from kgl_gene_tpu_torch.ontology.obo import parse_go_file
     from kgl_gene_tpu_torch.ontology.similarity import SimilarityLin
     from kgl_gene_tpu_torch.ops.similarity import (
-        ancestor_lists, ancestor_rows, id_order, lin_matrix_device, mica, mica_matrix_device,
+        ancestor_lists, ancestor_rows, lin_matrix_device, mica, mica_matrix_device,
         mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
     )
 
@@ -3409,30 +3378,19 @@ def phase_ontology(dev, workdir, errs):
         f"{out['database_cache_terms']} BP terms in {out['database_s']:.2f} s")
 
     # Times of the kernel at the path's shape: on the compact rows the path
-    # builds (ancestor_rows), through the padded wrapper (rows_on_card
-    # first), and the first design (kgt_mica_tiles) in the same windows:
-    # its kernel on rows put through id_order outside the window (kernel
-    # against kernel) and its wrapper with the sort (wrapper against the
-    # padded wrapper).
+    # builds (ancestor_rows), and through the padded wrapper (rows_on_card
+    # first) in the same windows.
     t0 = time.perf_counter()
     offsets, r_ids, r_ic = ancestor_rows(info, idxs)
     out["ancestor_rows_s"] = time.perf_counter() - t0
     rows = row_set(offsets, r_ids, r_ic, dev)
-    bodies = kernel_bodies()
-    ordered = id_order(ids_t, ic_t)
     errs["mica"] = max(errs["mica"], same_floats(
         f"mica_rows on the path's rows vs the padded wrapper (n = {n})", mica_rows(rows),
         mica(ids_t, ic_t)))
-    errs["mica"] = max(errs["mica"], same_floats(
-        f"the first design (kgt_mica_tiles) vs the padded wrapper (n = {n})",
-        bodies.mica_first_design(ids_t, ic_t), mica(ids_t, ic_t)))
     call = functools.partial(mica_rows, rows)
     padded = functools.partial(mica, ids_t, ic_t)
-    first = functools.partial(bodies.mica_tiles, *ordered)
-    first_wrapper = functools.partial(bodies.mica_first_design, ids_t, ic_t)
-    ms, padded_ms, first_ms, first_wrapper_ms = time_cuda_turns(
-        [call, padded, first, first_wrapper], 5, windows=3)
-    device_ms, first_device_ms = (time_device([fn], 5, windows=3) for fn in (call, first))
+    ms, padded_ms = time_cuda_turns([call, padded], 5, windows=3)
+    device_ms = time_device([call], 5, windows=3)
     least, slots = mica_work(ids, dev)
     # The step's instructions go to several pipes (shared loads, integer
     # compares and selects, a float min and max, moves), so both counts are
@@ -3443,26 +3401,20 @@ def phase_ontology(dev, workdir, errs):
     byte_ms = (ids.nbytes + vals.nbytes + 4 * n * n) / MEM_BYTES_PER_S * 1e3
     issue_ms = least * MICA_STEP_OPS / rate * 1e3
     out.update(kernel_ms=ms, kernel_device_ms=device_ms, padded_wrapper_ms=padded_ms,
-               first_design_ms=first_ms, first_design_device_ms=first_device_ms,
-               first_design_wrapper_ms=first_wrapper_ms,
                plain_ms=plain_s * 1e3, bytes_bound_ms=byte_ms, merge_issue_bound_ms=issue_ms,
                merge_steps=least, design_merge_lane_slots=slots, lane_slot_ratio=slots / least,
                design_issue_ms=slots * MICA_MERGE_OPS / rate * 1e3,
                tile=tile, tile_entries=entries, smem_bytes=mica_smem_bytes(tile, entries),
                blocks_per_sm=lib.kgt_mica_occupancy(tile, entries),
-               first_design_blocks_per_sm=lib.kgt_mica_tiles_occupancy(K),
                cuda_max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     log(f"  mica kernel n = {n}, K = {K}: {ms:.4f} ms host-inclusive, device {device_ms:.4f} ms; "
-        f"the first design's kernel on id-ordered rows {first_ms:.4f} ms, device "
-        f"{first_device_ms:.4f} ms ({first_ms / ms:.3f}x); the padded wrapper {padded_ms:.4f} "
-        f"ms against the first design's wrapper {first_wrapper_ms:.4f} ms "
-        f"({first_wrapper_ms / padded_ms:.3f}x); bounds: bytes {byte_ms:.4f} ms, merge issue "
+        f"the padded wrapper {padded_ms:.4f} ms; bounds: bytes {byte_ms:.4f} ms, merge issue "
         f"{issue_ms:.4f} ms ({least:.4g} steps x {MICA_STEP_OPS} at {rate / 1e12:.3f} T/s, "
         f"{DISPATCH_LANES_PER_SM} lanes x SMs x max SM clock); the design's count "
         f"{out['design_issue_ms']:.4f} ms ({slots:.4g} lane slots, {slots / least:.3f} x the "
         f"steps, x {MICA_MERGE_OPS}); tile {tile}, {entries} entries, "
-        f"{out['smem_bytes']} B of shared memory, {out['blocks_per_sm']} blocks an SM (the first "
-        f"design {out['first_design_blocks_per_sm']}); device memory at most "
+        f"{out['smem_bytes']} B of shared memory, {out['blocks_per_sm']} blocks an SM; device "
+        f"memory at most "
         f"{out['cuda_max_memory_gb']:.3f} GB")
     # Rows out of id order at the same scale: lists cut to the top 64 by
     # IC, each cut row in descending IC order, sorted by the wrapper.
@@ -3491,9 +3443,7 @@ def phase_ontology(dev, workdir, errs):
            "bound_by": "operations" if issue_ms >= byte_ms else "bytes",
            "library_ms": None, "issue_bound_ms": issue_ms,
            "design_issue_ms": out["design_issue_ms"], "lane_slot_ratio": slots / least,
-           "blocks_per_sm": out["blocks_per_sm"], "first_design_ms": first_ms,
-           "first_design_device_ms": first_device_ms,
-           "first_design_wrapper_ms": first_wrapper_ms, "padded_wrapper_ms": padded_ms}
+           "blocks_per_sm": out["blocks_per_sm"], "padded_wrapper_ms": padded_ms}
     return out, row, path_launches
 
 
@@ -3773,10 +3723,11 @@ class BandedCpuTree:
         self._mod, self._orig = lib_seqmutation, lib_seqmutation.pairwise_distance_matrix
         self.calls = 0
 
-        def banded(seqs, lens, band_k=None, device=None):
+        def banded(seqs, lens, band_k=None, device=None, metric="global"):
             self.calls += 1
-            return self._orig(seqs, lens, band_k=127 if band_k is None else band_k,
-                              device=device)
+            if band_k is None and metric == "global":
+                band_k = 127
+            return self._orig(seqs, lens, band_k=band_k, device=device, metric=metric)
 
         lib_seqmutation.pairwise_distance_matrix = banded
         return self
@@ -3938,7 +3889,7 @@ MULTI_STEP_ITERS = 3                 # calls a window
 # version: ragged pairs from empty to a few thousand bases.
 CHUNK_CASES = (((257, 100, 31, 1, 0, 3_000, 2_500), (190, 211, 257, 0, 5, 2_990, 2_600)),
                ((4_000,), (3_993,)))
-CHUNK_HALOS = (32, 128, 600, 1_024)  # 600 and 1,024: past the first design's cap of 512
+CHUNK_HALOS = (32, 128, 600, 1_024)  # 600 and 1,024: past one launch's 512 diagonals
 CHUNK_RUN = 8                         # chunks of the cooperative route's timed launch
 
 
@@ -3975,8 +3926,8 @@ def simulate_ranks(seq_a, la, seq_b, lb, world, halo, dev, step):
 
 def chunk_kernel_cases(dev, errs):
     """Kernel wavefront_chunk against chunk_plain (exact) on ragged pairs
-    up to a few thousand bases, halos 32 and 128 and the halos past the
-    first design's cap of 512 (600 and 1,024: two launches a chunk), worlds
+    up to a few thousand bases, halos 32 and 128 and the halos past one
+    launch's 512 diagonals (600 and 1,024: two launches a chunk), worlds
     1 and 2 (the ranks simulated in this process): the distances, every
     rank's last lanes, and the numpy DP. At world 1 and halos to 512 the
     cooperative route too, in two runs of chunks, bit for bit against the
@@ -4217,9 +4168,7 @@ def chunk_rows(dev, long32, errs):
     pair at world 1. wavefront_chunk: one chunk (H = MULTI_HALO diagonals,
     the middle chunk, whose diagonals cross the whole table) from the pair's
     real DP state (the chunks before it run first), held against
-    chunk_plain, host-inclusive and on the device, with the first design
-    (kgt_wavefront_chunk_lane, from scripts/torch_kernel_bodies.py) timed
-    in turns in the same windows and held too. wavefront_chunks: the
+    chunk_plain, host-inclusive and on the device. wavefront_chunks: the
     cooperative route over CHUNK_RUN chunks from the same state in one
     launch against run_chunks_plain, each launch from a fresh copy of the
     state; and the whole pair through sharded_levenshtein, its wall split
@@ -4234,7 +4183,6 @@ def chunk_rows(dev, long32, errs):
     from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
     from kgl_gene_tpu_torch.parallel.dist import SampleMesh
 
-    lane_body = kernel_bodies().chunk_lane
     s = sw.rank_lanes(*long32, 0, 1, MULTI_HALO, dev)
     c = s.n_chunks // 2
     s = sw.run_chunks(s, 0, c)
@@ -4244,27 +4192,21 @@ def chunk_rows(dev, long32, errs):
     def fresh(x):
         return x._replace(out_pp=x.out_pp.clone(), out_p=x.out_p.clone(), result=x.result.clone())
 
-    new_s, lane_s, plain_s = fresh(s), fresh(s), fresh(s)
+    new_s, plain_s = fresh(s), fresh(s)
     kern = functools.partial(sw.chunk, new_s, d0)
-    lane = functools.partial(lane_body, lane_s, d0)
     kern()
-    lane()
     sw.chunk_plain(plain_s, d0)
     torch.cuda.synchronize()
     tag = f"chunk {c} of {s.n_chunks} of the {MULTI_LONG[0]}-base pair, from its DP state"
-    for name, got in (("wavefront_chunk", new_s), ("the first design", lane_s)):
-        err = max(exact(f"{name} vs chunk_plain, lanes d - 1 ({tag})", got.out_p[:, s.H:],
-                        plain_s.out_p[:, s.H:]),
-                  exact(f"{name} vs chunk_plain, lanes d - 2 ({tag})", got.out_pp[:, s.H:],
-                        plain_s.out_pp[:, s.H:]))
-        if name == "wavefront_chunk":
-            errs["wavefront_chunk"] = max(errs["wavefront_chunk"], err)
+    errs["wavefront_chunk"] = max(
+        errs["wavefront_chunk"],
+        exact(f"wavefront_chunk vs chunk_plain, lanes d - 1 ({tag})", new_s.out_p[:, s.H:],
+              plain_s.out_p[:, s.H:]),
+        exact(f"wavefront_chunk vs chunk_plain, lanes d - 2 ({tag})", new_s.out_pp[:, s.H:],
+              plain_s.out_pp[:, s.H:]))
     ms = time_cuda(kern, 20, windows=5)
-    turns = {"new": [], "lane": []}
-    for _ in range(2):
-        for name, fn in (("new", kern), ("lane", lane), ("lane", lane), ("new", kern)):
-            turns[name].append(time_device([fn], 20, windows=3))
-    device_ms, lane_ms = (statistics.median(turns[k]) for k in ("new", "lane"))
+    turns = [time_device([kern], 20, windows=3) for _ in range(4)]
+    device_ms = statistics.median(turns)
     plain_ms = time_cuda(lambda: sw.chunk_plain(plain_s, d0), 1, windows=3)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     warps, T, tiles = sw.chunk_geometry(W - s.H, s.H, B, sms)
@@ -4276,16 +4218,15 @@ def chunk_rows(dev, long32, errs):
     cells = chunk_cells(s, d0, d0 + s.H)
     b_ms, by, ops, issue_ms, dispatch_ms, bytes_ms = chunk_bounds(s, cells, 1)
     log(f"  wavefront_chunk (one chunk of {s.H} diagonals, {s.Ma + 1} lanes, {cells} cells; "
-        f"{geometry}): {ms:.6f} ms host-inclusive, {device_ms:.6f} ms device (turns "
-        f"{turns['new']}); the first design {lane_ms:.6f} ms device (turns {turns['lane']}); "
-        f"plain {plain_ms:.3f} ms; bound {b_ms:.6f} ms ({by}: cell operations at the float32 "
+        f"{geometry}): {ms:.6f} ms host-inclusive, {device_ms:.6f} ms device (windows "
+        f"{turns}); plain {plain_ms:.3f} ms; bound {b_ms:.6f} ms ({by}: cell operations at the float32 "
         f"rate, {bytes_ms:.6f} ms of bytes); at the issue rate {issue_ms:.6f} ms, at the "
         f"dispatch rate {dispatch_ms:.6f} ms")
     one = dict(name="wavefront_chunk", route="cuda",
                source="kgl_gene_tpu_torch/csrc/sharded_wavefront.cu",
                replaces="kgl_gene_tpu/ops/sharded_wavefront.py:42",
                shape=f"one chunk, H={s.H}, {s.Ma + 1} lanes, {cells} cells",
-               ms=ms, device_ms=device_ms, first_design_device_ms=lane_ms, plain_ms=plain_ms,
+               ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                library_ms=None, bound_ms=b_ms, bound_by=by, int_ops=ops,
                issue_bound_ms=issue_ms, dispatch_bound_ms=dispatch_ms, geometry=geometry)
 

@@ -21,11 +21,10 @@ analysis was made with device='cpu':
   - reference_distances: global metric on the exact wavefront (kernel
     B3), local (infix) metric on kernel `local`, the reference one row
     read by every pair;
-  - distance_tree_newick: the all-pairs matrix (global: on the card,
-    kernel B1's pair pool at band 127 with its exact overflow re-run, on
-    the CPU the exact route; local: kernel `local` over the pairs gathered
-    on the device from the uploaded pool), then UPGMA and Newick on the
-    host;
+  - distance_tree_newick: the all-pairs matrix (ops/edit_distance.
+    pairwise_distance_matrix; global: on the card, kernel B1's pair pool
+    at band 127 with its exact overflow re-run, on the CPU the exact
+    route; local: kernel `local`), then UPGMA and Newick on the host;
   - reference_cigars: the banded traceback (kernel B4, ops/traceback).
 """
 
@@ -49,8 +48,8 @@ from ..genome.features import (
 from ..mutation.capture import BatchCapture, capture_population_batch, capture_population_split
 from ..mutation.sequence_filter import SeqVariantFilterType
 from ..mutation.transcript import SequenceTranscript
-from ..ops.edit_distance import gathered_pairs, pairwise_distance_matrix
-from ..ops.local import batched_levenshtein_local_kernel, local_levenshtein
+from ..ops.edit_distance import pairwise_distance_matrix
+from ..ops.local import local_levenshtein
 from ..ops.pipeline import (
     forward,
     forward_indel,
@@ -703,22 +702,14 @@ class TranscriptFamilyAnalysis:
         if len(sequences) < 2:
             return f"({labels[0] if labels else 'reference'}:0);"
         seqs, lens = self._padded_codes(sequences)
-        if self.metric == "local":
-            # The pool goes up once; the pairs are gathered on the device.
-            n = len(sequences)
-            iu, ju = np.triu_indices(n, k=1)
-            pool = torch.as_tensor(seqs.astype(np.int32), device=self.device)
-            pool_lens = torch.as_tensor(lens, device=self.device)
-            d = gathered_pairs(batched_levenshtein_local_kernel, pool, pool_lens, iu, ju)
-            matrix = np.zeros((n, n), dtype=np.float64)
-            matrix[iu, ju] = d
-            matrix[ju, iu] = d
-        else:
-            # Family members differ by few edits, so the card takes the
-            # banded pool; overflow pairs re-run exactly, so this is a
-            # routing choice and the matrix is the same either way.
-            band_k = DEVICE_BAND if self.device.type == "cuda" else None
-            matrix = pairwise_distance_matrix(seqs, lens, band_k=band_k, device=self.device)
+        # As in reference_distances, any metric but "local" is global.
+        # Family members differ by few edits, so the card takes the banded
+        # pool for the global metric; overflow pairs re-run exactly, so this
+        # is a routing choice and the matrix is the same either way.
+        metric = "local" if self.metric == "local" else "global"
+        band_k = DEVICE_BAND if self.device.type == "cuda" and metric == "global" else None
+        matrix = pairwise_distance_matrix(seqs, lens, band_k=band_k, device=self.device,
+                                          metric=metric)
         return newick(upgma_tree(matrix, labels))
 
     def reference_cigars(self, band_k: int = 127) -> Dict[str, str]:

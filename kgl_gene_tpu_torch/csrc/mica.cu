@@ -24,7 +24,9 @@
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 3f, 8,192
 // terms, K = 256): 2.69 ms, 7.4x that floor, with 1.21 lane slots a merge
-// step; the first design's kernel took 9.1 ms on the same sorted rows.
+// step. A first design, a block per 16 x 16 tile on padded (rows, K)
+// lists with shared memory sized by K, took 9.1 ms on the same sorted rows
+// (PERF.md, the kernel table).
 //
 // Design (kgt_mica). The input is compact rows: CSR offsets and the
 // entries (id, IC) of each row packed end to end in ascending id order,
@@ -44,10 +46,6 @@
 // advanced, with no branch in the step; two steps a loop trip, the
 // sentinels ending it with one test of the two heads. Results go to a T x
 // (T + 1) shared tile, stored coalesced once the block is done.
-//
-// kgt_mica_tiles is the first design, kept for scripts/torch_kernel_bodies.py:
-// a block per 16 x 16 tile on padded (rows, K) lists, which counts and
-// stages each row's real prefix in every tile, shared memory sized by K.
 #include "common.cuh"
 
 #include <climits>
@@ -208,143 +206,6 @@ KGT_API int kgt_mica_occupancy(int64_t tile, int64_t entries) {
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mica_rows_kernel, MICA_THREADS,
                                                     bytes) != cudaSuccess)
-    return 0;
-  return blocks;
-}
-
-// ---- The first design (kgt_mica_tiles) ----
-
-// Per row of the tile: the number of ids >= 0 (the pads are last).
-template <int T>
-__device__ __forceinline__ void count_rows(const int32_t* __restrict__ ids, int64_t n, int K,
-                                           int64_t r0, int* s_len) {
-  for (int e = threadIdx.x; e < T * K; e += blockDim.x) {
-    const int r = e / K, p = e % K;
-    if (r0 + r < n && __ldg(ids + (r0 + r) * K + p) >= 0) atomicAdd(&s_len[r], 1);
-  }
-}
-
-// Each row's real prefix as (id, IC bits) pairs in shared memory.
-template <int T>
-__device__ __forceinline__ void stage_rows(const int32_t* __restrict__ ids,
-                                           const float* __restrict__ ic, int64_t n, int K,
-                                           int64_t r0, int S, const int* s_len, int2* s_row) {
-  for (int e = threadIdx.x; e < T * K; e += blockDim.x) {
-    const int r = e / K, p = e % K;
-    const int64_t at = (r0 + r) * K + p;
-    if (r0 + r < n && p < s_len[r])
-      s_row[r * S + p] = make_int2(__ldg(ids + at), __float_as_int(__ldg(ic + at)));
-  }
-}
-
-template <int T>
-__global__ void __launch_bounds__(T * T)
-mica_kernel(const int32_t* __restrict__ ids_i, const float* __restrict__ ic_i, int64_t ni,
-            int ki, const int32_t* __restrict__ ids_j, const float* __restrict__ ic_j,
-            int64_t nj, int kj, float* __restrict__ out, int symmetric) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (symmetric && bi > bj) return;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int si = ki | 1, sj = kj | 1;  // odd strides: a column of rows spans the banks
-  int2* s_i = (int2*)smem;
-  int2* s_j = s_i + T * si;
-  int* s_len = (int*)(s_j + T * sj);       // T rows of i, then T rows of j
-  float* s_out = (float*)(s_len + 2 * T);  // T x (T + 1), the mirrored tile
-  const int64_t i0 = (int64_t)bi * T, j0 = (int64_t)bj * T;
-
-  for (int r = threadIdx.x; r < 2 * T; r += blockDim.x) s_len[r] = 0;
-  __syncthreads();
-  count_rows<T>(ids_i, ni, ki, i0, s_len);
-  count_rows<T>(ids_j, nj, kj, j0, s_len + T);
-  __syncthreads();
-  stage_rows<T>(ids_i, ic_i, ni, ki, i0, si, s_len, s_i);
-  stage_rows<T>(ids_j, ic_j, nj, kj, j0, sj, s_len + T, s_j);
-  __syncthreads();
-
-  // The merge: advance past the smaller id, both on a match.
-  const int ty = threadIdx.x / T, tx = threadIdx.x % T;
-  const int2* a = s_i + ty * si;
-  const int2* const a_end = a + s_len[ty];
-  const int2* b = s_j + tx * sj;
-  const int2* const b_end = b + s_len[T + tx];
-  float best = 0.0f;
-  while (a < a_end && b < b_end) {
-    const int2 x = *a, y = *b;
-    if (x.x == y.x) best = fmaxf(best, fminf(__int_as_float(x.y), __int_as_float(y.y)));
-    a += x.x <= y.x;
-    b += y.x <= x.x;
-  }
-  const int64_t i = i0 + ty, j = j0 + tx;
-  if (i < ni && j < nj) out[i * nj + j] = best;
-  if (symmetric && bi != bj) {  // uniform over the block
-    s_out[ty * (T + 1) + tx] = best;
-    __syncthreads();
-    const int64_t mi = j0 + ty, mj = i0 + tx;
-    if (mi < nj && mj < ni) out[mi * nj + mj] = s_out[tx * (T + 1) + ty];
-  }
-}
-
-static size_t smem_bytes(int T, int ki, int kj) {
-  return (size_t)T * ((ki | 1) + (kj | 1)) * 8 + 2 * T * 4 + (size_t)T * (T + 1) * 4;
-}
-
-template <int T>
-static int launch_tile(const int32_t* ids_i, const float* ic_i, int64_t ni, int ki,
-                       const int32_t* ids_j, const float* ic_j, int64_t nj, int kj, float* out,
-                       int symmetric, cudaStream_t stream) {
-  if ((ni + T - 1) / T > 65535) return (int)cudaErrorInvalidValue;  // grid.y
-  const size_t bytes = smem_bytes(T, ki, kj);
-  // Raised only when a launch needs more than any before it, so that a
-  // repeated launch (as in a CUDA graph capture) makes no other API call.
-  static size_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mica_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    allowed = bytes;
-  }
-  const dim3 grid((unsigned)((nj + T - 1) / T), (unsigned)((ni + T - 1) / T));
-  mica_kernel<T><<<grid, T * T, bytes, stream>>>(ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj,
-                                                 out, symmetric);
-  return kgt_launch_status();
-}
-
-// ids_i, ic_i: (ni, ki); ids_j, ic_j: (nj, kj); out: (ni, nj) float32.
-// Each row holds distinct ids >= 0 in ascending order, then -1 pads.
-// symmetric != 0: the j set is the i set (same pointers and sizes), and
-// only the upper triangle of tiles is computed and mirrored. The widest
-// tile whose rows fit in shared memory is taken.
-KGT_API int kgt_mica_tiles(const int32_t* ids_i, const float* ic_i, int64_t ni, int64_t ki,
-                     const int32_t* ids_j, const float* ic_j, int64_t nj, int64_t kj, float* out,
-                     int64_t symmetric, cudaStream_t stream) {
-  if (ni <= 0 || nj <= 0 || ki <= 0 || kj <= 0 || ki > INT_MAX / 16 || kj > INT_MAX / 16)
-    return (int)cudaErrorInvalidValue;
-  const int a = (int)ki, b = (int)kj, s = (int)(symmetric != 0);
-  if (smem_bytes(16, a, b) <= SMEM_LIMIT)
-    return launch_tile<16>(ids_i, ic_i, ni, a, ids_j, ic_j, nj, b, out, s, stream);
-  if (smem_bytes(8, a, b) <= SMEM_LIMIT)
-    return launch_tile<8>(ids_i, ic_i, ni, a, ids_j, ic_j, nj, b, out, s, stream);
-  if (smem_bytes(4, a, b) <= SMEM_LIMIT)
-    return launch_tile<4>(ids_i, ic_i, ni, a, ids_j, ic_j, nj, b, out, s, stream);
-  if (smem_bytes(2, a, b) <= SMEM_LIMIT)
-    return launch_tile<2>(ids_i, ic_i, ni, a, ids_j, ic_j, nj, b, out, s, stream);
-  if (smem_bytes(1, a, b) <= SMEM_LIMIT)
-    return launch_tile<1>(ids_i, ic_i, ni, a, ids_j, ic_j, nj, b, out, s, stream);
-  return (int)cudaErrorInvalidValue;  // K beyond the shared memory of a block
-}
-
-// Blocks of the first design's 16 x 16 kernel an SM holds at once at
-// width K (both row sets); 0 when that tile does not fit. No launch.
-KGT_API int kgt_mica_tiles_occupancy(int64_t K) {
-  if (K <= 0 || K > INT_MAX / 16) return 0;
-  const size_t bytes = smem_bytes(16, (int)K, (int)K);
-  if (bytes > SMEM_LIMIT) return 0;
-  if (cudaFuncSetAttribute(mica_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_LIMIT) != cudaSuccess)
-    return 0;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mica_kernel<16>, 256, bytes) !=
-      cudaSuccess)
     return 0;
   return blocks;
 }

@@ -28,11 +28,9 @@
 // (__all_sync), and writes the OP_END / 0 tail of the steps it did not run
 // with the same coalesced stores, which issue without waiting on a load.
 //
-// The first design (kgt_walk_pair_major) ran every pair's
-// max_steps trips to the end and wrote pair-major (B, max_steps) tapes, so
-// each warp store touched 32 lines; it is kept for
-// scripts/torch_kernel_bodies.py, which times it beside kgt_walk, and lies
-// on no path of the package.
+// A first design ran every pair's max_steps trips to the end and wrote
+// pair-major (B, max_steps) tapes, so each warp store touched 32 lines; it
+// was 1.86x slower (PERF.md, the kernel table).
 #include "common.cuh"
 
 namespace {
@@ -86,42 +84,6 @@ walk_kernel(const uint8_t* __restrict__ codes, int64_t row_stride,
   }
 }
 
-// The first design: every pair all max_steps trips, pair-major tapes.
-__global__ void __launch_bounds__(32)
-walk_pair_major_kernel(const uint8_t* __restrict__ codes, int64_t row_stride,
-                       int64_t pair_stride, int M, int W,
-                       const int32_t* __restrict__ la_arr,
-                       const int32_t* __restrict__ lb_arr, uint8_t* __restrict__ ops,
-                       int32_t* __restrict__ counts, int B, int band_k, int max_steps) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= B) return;
-  const uint8_t* cp = codes + p * pair_stride;
-  uint8_t* op_row = ops + (size_t)p * max_steps;
-  int32_t* count_row = counts + (size_t)p * max_steps;
-  int i = max(la_arr[p], 0);
-  int j = max(lb_arr[p], 0);
-  for (int s = 0; s < max_steps; ++s) {
-    if (i <= 0 && j <= 0) {
-      op_row[s] = OP_END;
-      count_row[s] = 0;
-      continue;
-    }
-    const int c = min(max(j - i + band_k, 0), W - 1);
-    const int row = min(max(i - 1, 0), M - 1);
-    const int code = cp[row * row_stride + c];
-    const bool both = i > 0 && j > 0;
-    const bool is_match = both && code >= 3;
-    const bool take_diag = both && code >= 2;
-    const bool take_up = (both && code == 1) || (i > 0 && j <= 0);
-    const bool take_left = !take_diag && !take_up;
-    const int count = is_match ? max(code - 2, 1) : 1;
-    op_row[s] = take_diag ? (is_match ? OP_M : OP_X) : take_up ? OP_D : OP_I;
-    count_row[s] = count;
-    if (!take_left) i -= count;
-    if (!take_up) j -= count;
-  }
-}
-
 }  // namespace
 
 // codes: uint8, pair p's code of row r and cell c at codes[r * row_stride +
@@ -137,23 +99,6 @@ KGT_API int kgt_walk(const void* codes, int64_t row_stride, int64_t pair_stride,
   const int threads = 32;
   walk_kernel<<<(unsigned)((B + threads - 1) / threads), threads, 0,
                 (cudaStream_t)stream>>>(
-      (const uint8_t*)codes, row_stride, pair_stride, (int)M, (int)W,
-      (const int32_t*)la, (const int32_t*)lb, (uint8_t*)ops, (int32_t*)counts,
-      (int)B, (int)band_k, (int)max_steps);
-  return kgt_launch_status();
-}
-
-// The first design, the same arguments but ops and counts (B, max_steps)
-// (pair-major); scripts/torch_kernel_bodies.py only.
-KGT_API int kgt_walk_pair_major(const void* codes, int64_t row_stride, int64_t pair_stride,
-                                int64_t M, int64_t W, const void* la, const void* lb,
-                                void* ops, void* counts, int64_t B, int64_t band_k,
-                                int64_t max_steps, void* stream) {
-  if (M < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  if (B == 0 || max_steps == 0) return 0;
-  const int threads = 32;
-  walk_pair_major_kernel<<<(unsigned)((B + threads - 1) / threads), threads, 0,
-                           (cudaStream_t)stream>>>(
       (const uint8_t*)codes, row_stride, pair_stride, (int)M, (int)W,
       (const int32_t*)la, (const int32_t*)lb, (uint8_t*)ops, (int32_t*)counts,
       (int)B, (int)band_k, (int)max_steps);

@@ -72,15 +72,9 @@ _SIGNATURES = {
     # codes, row_stride, pair_stride, M, W, la, lb, ops, counts, B, band_k,
     # max_steps, stream
     "kgt_walk": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
-    # the same arguments: the walk's first design, (B, max_steps) tapes
-    # (scripts/torch_kernel_bodies.py)
-    "kgt_walk_pair_major": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P),
     # ptr_i, ids_i, ic_i, ni, ptr_j, ids_j, ic_j, nj, tile, entries, out,
     # symmetric, stream: compact rows
     "kgt_mica": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _P),
-    # ids_i, ic_i, ni, ki, ids_j, ic_j, nj, kj, out, symmetric, stream: the
-    # first design on padded lists (scripts/torch_kernel_bodies.py)
-    "kgt_mica_tiles": (_P, _P, _I, _I, _P, _P, _I, _I, _P, _I, _P),
     # a_lane, b, b_stride, Mb, la, lb, src_pp, src_p, dst_pp, dst_p, result, B, W,
     # i0, Ma, d0, h, k_first, H_own, warps, stream: one launch (a chunk, or a
     # sub-step of one) of the sharded long-pair wavefront
@@ -90,11 +84,6 @@ _SIGNATURES = {
     # H, n, warps, stream: n chunks in one cooperative launch
     "kgt_wavefront_chunks": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _P),
-    # a_lane, b, b_stride, Mb, la, lb, in_pp, in_p, out_pp, out_p, result, B, W,
-    # i0, Ma, d0, H, stream: one chunk by the first design, a lane a thread
-    # (scripts/torch_kernel_bodies.py)
-    "kgt_wavefront_chunk_lane": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _P),
     # codes, G, L, af, valid, mask (0 none, 1 per locus, 2 per genome),
     # chunk_loci, terms, logs, partial, tickets, lo, hi, stream: the
     # Loglikelihood's tables, its grid and first bracket (two kernels)
@@ -115,8 +104,6 @@ _SIGNATURES = {
     "kgt_local_resources": (_I, _I, _I, _I, _P),
     # tile, entries -> blocks of kgt_mica an SM holds; no launch
     "kgt_mica_occupancy": (_I, _I),
-    # K -> blocks of kgt_mica_tiles an SM holds; no launch
-    "kgt_mica_tiles_occupancy": (_I,),
     # warps, H -> blocks of kgt_wavefront_chunks the current device holds at
     # once (-1: a geometry the kernel refuses); no launch
     "kgt_wavefront_chunks_blocks": (_I, _I),

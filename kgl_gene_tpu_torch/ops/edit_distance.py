@@ -1,5 +1,6 @@
 """Levenshtein distances: the numpy oracles, the plain batched wavefront,
-the local (infix) metric and the all-pairs matrix.
+the local (infix) metric and the all-pairs matrix of either metric, on one
+device or over a mesh of ranks.
 
 Counterpart of kgl_gene_tpu/ops/edit_distance.py. batched_levenshtein is
 the cell-level plain PyTorch version of kernel B3 (csrc/wavefront.cu,
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
+from ..parallel.dist import gather_rows, mesh_of, rank_rows
 from ..tracing import span
 
 __all__ = [
@@ -216,17 +217,68 @@ def _rerun_overflow_pairs(seq_a, len_a, seq_b, len_b, failed_k: int, device) -> 
                                       device=device)
 
 
-def pairwise_distance_matrix(seqs, lens, band_k=None, device=None) -> np.ndarray:
-    """All-pairs Levenshtein matrix of n padded sequences (n, M), a dense
-    symmetric (n, n) float64 array, on the card unless device='cpu'.
+def pairwise_distance_matrix(seqs, lens, band_k=None, device=None,
+                             metric: str = "global") -> np.ndarray:
+    """All-pairs distance matrix of n padded sequences (n, M): a dense
+    symmetric (n, n) float64 array with a zero diagonal.
 
-    The pool goes to the device once; pairs of the upper triangle are
-    gathered there in chunks. With band_k, every pair runs on kernel B1's
-    per-pair mode at the smallest Myers band >= band_k, and pairs outside
-    its exactness contract re-run at wider bands, then on the exact
-    wavefront (kernel B3). With band_k=None every pair runs on B3. Both
-    routes are exact. It is parallel.mesh.sharded_pairwise_distances on a
-    world of one rank."""
-    from ..parallel.mesh import sharded_pairwise_distances
+    metric "global" is Levenshtein; "local" the symmetric infix distance
+    (batched_levenshtein_local), which has no band. device: None (the
+    card), a device, or a parallel.dist.SampleMesh, whose ranks split the
+    upper triangle's pairs (padded to a multiple of the world size, cut
+    into equal blocks) and gather the distances, every rank returning the
+    whole matrix. The pool of sequences goes to the device once; a rank
+    gathers its pairs' rows there in chunks (gathered_pairs) and runs them
+    through a kernel: for "global" with band_k, kernel B1's per-pair mode
+    at the smallest Myers band >= band_k, the pairs outside the band's
+    exactness contract re-run after the assembly at wider bands, then on
+    the exact wavefront; for "global" with band_k=None, kernel B3; for
+    "local", kernel `local`. Every route is exact."""
+    from .local import batched_levenshtein_local_kernel
+    from .myers import myers_band_for, myers_pairs_device
+    from .wavefront import batched_levenshtein_kernel
 
-    return sharded_pairwise_distances(seqs, lens, resolve_device(device), band_k)
+    if metric not in ("global", "local"):
+        raise ValueError(f"metric is 'global' or 'local', not {metric!r}")
+    if metric == "local" and band_k is not None:
+        raise ValueError("the local metric has no band: band_k must be None")
+    mesh = mesh_of(device)
+    seqs = np.asarray(seqs)
+    lens = np.asarray(lens, dtype=np.int32)
+    n = seqs.shape[0]
+    with span("kgt.pairs"):
+        with span("kgt.pairs.index"):
+            iu, ju = np.triu_indices(n, k=1)
+            n_pairs = len(iu)
+            mine = rank_rows(np.stack([iu, ju], axis=1), mesh)
+        with span("kgt.pairs.upload"):
+            pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=mesh.device)
+            pool_lens = torch.as_tensor(lens, device=mesh.device)
+        if band_k is not None:
+            band_k = myers_band_for(band_k) or 511
+            found = myers_pairs_device(pool, pool_lens, mine[:, 0], mine[:, 1], band_k=band_k)
+        else:
+            kernel = (batched_levenshtein_local_kernel if metric == "local"
+                      else batched_levenshtein_kernel)
+            found = gathered_pairs(kernel, pool, pool_lens, mine[:, 0], mine[:, 1])
+        if mesh.group is not None:  # one rank alone holds every pair already
+            with span("kgt.pairs.gather_ranks"):
+                found = gather_rows(torch.as_tensor(found, device=mesh.device),
+                                    mesh).cpu().numpy()
+        with span("kgt.pairs.assemble"):
+            distances = found[:n_pairs].astype(np.int64)
+            pending = np.zeros(0, dtype=np.int64)
+            if band_k is not None:
+                ok = (distances <= band_k) & (np.abs(lens[iu] - lens[ju]) <= band_k)
+                pending = np.nonzero(~ok)[0]
+            out = np.zeros((n, n), dtype=np.float64)
+            out[iu, ju] = distances
+            out[ju, iu] = distances
+        if pending.size:
+            with span("kgt.pairs.rerun"):
+                bi, bj = iu[pending], ju[pending]
+                exact = _rerun_overflow_pairs(seqs[bi], lens[bi], seqs[bj], lens[bj], band_k,
+                                              mesh.device)
+                out[bi, bj] = exact
+                out[bj, bi] = exact
+    return out

@@ -402,7 +402,7 @@ def make_multichip_step(
     the transcript geometry on every rank, allele counts summed over them.
 
     step(positions, alt_codes, valid, zygosity) takes this rank's shard of
-    each (parallel.mesh.shard_samples: axis 0 padded with zeros to a
+    each (parallel.dist.rank_rows: axis 0 padded with zeros to a
     multiple of the world size, so a padded genome has no valid SNP and
     distance 0) and returns (distance, allele_counts, pop_ac): this rank's
     (B_local,) int32 distances, and the (K,) allele counts and the

@@ -14,6 +14,8 @@ package writes psum, ppermute or a sharded output:
 
 With one rank and no process group each is the identity, as the JAX
 package's single-device branches are (parallel/mesh.py:63-67, :203-204).
+rank_rows cuts a rank's block of an array's rows, as a sample-sharded
+jax.Array holds it.
 
 The backend is a stated choice (choose_backend), not a fallback: NCCL when
 every rank has a card of its own, gloo on the CPU and when ranks share a
@@ -41,14 +43,15 @@ import time
 import traceback
 from typing import Any, Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from .. import resolve_device
 
-__all__ = ["GLOO_CUDA_OPS", "SampleMesh", "choose_backend", "gather_rows", "psum",
-           "rank_device", "ring_shift", "run_ranks"]
+__all__ = ["GLOO_CUDA_OPS", "SampleMesh", "choose_backend", "gather_rows", "mesh_of",
+           "pad_to_multiple", "psum", "rank_device", "rank_rows", "ring_shift", "run_ranks"]
 
 # The collectives gloo runs on CUDA tensors itself; any other op on a CUDA
 # tensor over gloo goes through the host.
@@ -88,6 +91,31 @@ class SampleMesh:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         return cls(rank, dist.get_world_size(), dev, dist.group.WORLD, dist.get_backend())
+
+
+def mesh_of(device) -> SampleMesh:
+    """A SampleMesh as it is, any device as a world of one rank on it."""
+    return device if isinstance(device, SampleMesh) else SampleMesh.single(device)
+
+
+def pad_to_multiple(array: np.ndarray, multiple: int, axis: int = 0,
+                    fill=0) -> np.ndarray:
+    """Pad an axis up to a multiple (static-shape sharding requirement)."""
+    size = array.shape[axis]
+    target = ((size + multiple - 1) // multiple) * multiple
+    if target == size:
+        return array
+    pad = [(0, 0)] * array.ndim
+    pad[axis] = (0, target - size)
+    return np.pad(array, pad, constant_values=fill)
+
+
+def rank_rows(array: np.ndarray, mesh: SampleMesh) -> np.ndarray:
+    """Axis 0 of `array` padded with zeros to a multiple of the world size
+    (pad_to_multiple) and cut into world-size equal blocks: block r."""
+    padded = pad_to_multiple(np.asarray(array), mesh.world_size, axis=0)
+    rows = padded.shape[0] // mesh.world_size
+    return np.ascontiguousarray(padded[mesh.rank * rows : (mesh.rank + 1) * rows])
 
 
 def choose_backend(world_size: int, device_type: str) -> str:

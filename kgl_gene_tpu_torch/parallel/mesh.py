@@ -1,6 +1,7 @@
 """Population reductions over a mesh of ranks or on one device: allele
 counts, het/hom counts, per-genome inbreeding, inbreeding streamed over a
-population too large to densify, and the all-pairs distance matrix.
+population too large to densify, and the all-pairs distance matrix (ops/
+edit_distance.pairwise_distance_matrix over the mesh).
 
 Counterpart of kgl_gene_tpu/parallel/mesh.py. The JAX functions shard the
 genomes x variants zygosity matrix (or the all-pairs pair list) over a
@@ -21,9 +22,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.edit_distance import pairwise_distance_matrix
 from ..stats.inbreeding import _MIN_RITLAND_FREQ, run_estimator
-from ..tracing import span
-from .dist import SampleMesh, gather_rows, psum
+from .dist import SampleMesh, gather_rows, mesh_of, pad_to_multiple, psum, rank_rows
 
 __all__ = [
     "pad_to_multiple",
@@ -51,18 +52,6 @@ def slab_rows_for(genomes: int) -> int:
     return 1 << (max(1, SLAB_ELEMENTS // max(genomes, 1)).bit_length() - 1)
 
 
-def pad_to_multiple(array: np.ndarray, multiple: int, axis: int = 0,
-                    fill=0) -> np.ndarray:
-    """Pad an axis up to a multiple (static-shape sharding requirement)."""
-    size = array.shape[axis]
-    target = ((size + multiple - 1) // multiple) * multiple
-    if target == size:
-        return array
-    pad = [(0, 0)] * array.ndim
-    pad[axis] = (0, target - size)
-    return np.pad(array, pad, constant_values=fill)
-
-
 def sample_mesh(n_devices: Optional[int] = None, device=None) -> SampleMesh:
     """This process's 1-D mesh over the sample (genome) axis: its rank of
     the default process group when one is joined (run_ranks), else a world
@@ -78,24 +67,11 @@ def sample_mesh(n_devices: Optional[int] = None, device=None) -> SampleMesh:
     return mesh
 
 
-def _mesh_of(device) -> SampleMesh:
-    """A SampleMesh as it is, any device as a world of one rank on it."""
-    return device if isinstance(device, SampleMesh) else SampleMesh.single(device)
-
-
-def _rank_rows(array: np.ndarray, mesh: SampleMesh) -> np.ndarray:
-    """Axis 0 of `array` padded with zeros to a multiple of the world size
-    (pad_to_multiple) and cut into world-size equal blocks: block r."""
-    padded = pad_to_multiple(np.asarray(array), mesh.world_size, axis=0)
-    rows = padded.shape[0] // mesh.world_size
-    return np.ascontiguousarray(padded[mesh.rank * rows : (mesh.rank + 1) * rows])
-
-
 def shard_samples(array: np.ndarray, mesh: SampleMesh) -> torch.Tensor:
     """This rank's rows of `array` on its device: axis 0 padded with zeros
     to a multiple of the world size, then cut into world-size equal
     blocks, block r for rank r."""
-    return torch.as_tensor(_rank_rows(array, mesh), device=mesh.device)
+    return torch.as_tensor(rank_rows(array, mesh), device=mesh.device)
 
 
 def _zygosity_rows(zygosity: np.ndarray, mesh: SampleMesh) -> torch.Tensor:
@@ -109,7 +85,7 @@ def sharded_allele_counts(zygosity: np.ndarray, device=None) -> np.ndarray:
 
     Replaces the mutex-guarded merge of PopulationDB::addVariant counts
     (kgl_variant_db_population.h:106-110)."""
-    mesh = _mesh_of(device)
+    mesh = mesh_of(device)
     z = _zygosity_rows(zygosity, mesh)
     return psum(z.sum(0, dtype=torch.int32), mesh).cpu().numpy()
 
@@ -117,7 +93,7 @@ def sharded_allele_counts(zygosity: np.ndarray, device=None) -> np.ndarray:
 def sharded_het_hom(zygosity: np.ndarray, device=None) -> tuple:
     """(het, hom) counts per variant (int32), summed over the ranks of a
     SampleMesh."""
-    mesh = _mesh_of(device)
+    mesh = mesh_of(device)
     z = _zygosity_rows(zygosity, mesh)
     counts = torch.stack([(z == 1).sum(0, dtype=torch.int32),
                           (z == 2).sum(0, dtype=torch.int32)])
@@ -137,7 +113,7 @@ def sharded_inbreeding(
     the rows are gathered. A locus is valid where 0 < p < 1. Every
     estimator runs sharded, HallME too (the JAX package's does not trace
     under shard_map)."""
-    mesh = _mesh_of(device)
+    mesh = mesh_of(device)
     n_genomes = np.asarray(zygosity).shape[0]
     z = _zygosity_rows(zygosity, mesh).to(torch.int32)
     p = torch.as_tensor(np.asarray(minor_freq, dtype=np.float32), device=mesh.device)
@@ -239,7 +215,7 @@ def streamed_inbreeding(
     a multiple of 131,072); each is reduced in row slabs of at most
     SLAB_ELEMENTS elements of the whole population's G, whatever a rank
     holds, so the rows sum in one order on any number of ranks."""
-    mesh = _mesh_of(device)
+    mesh = mesh_of(device)
     dev = mesh.device
     G = csr.genome_count
     for name in algorithms:
@@ -290,58 +266,11 @@ def streamed_inbreeding(
 def sharded_pairwise_distances(seqs: np.ndarray, lens: np.ndarray, mesh,
                                band_k: Optional[int] = None) -> np.ndarray:
     """All-pairs Levenshtein matrix with the upper triangle's pairs split
-    over the ranks: the (n, n) symmetric float64 matrix on every rank.
-
-    The classification scale-out; on a device in place of the mesh (one
-    rank on it) it is ops.edit_distance.pairwise_distance_matrix. The pool
-    of sequences goes to every rank's device once, the pair list is padded
-    to a multiple of the world size and cut into equal blocks, each rank
-    gathers its pairs' rows there in chunks and runs them through kernel
-    B1's pair pool at the smallest Myers band >= band_k (kernel B3 when
-    band_k is None), and the distances are gathered. With band_k, the pairs
-    outside the band's exactness contract re-run exactly after the gather,
-    on every rank (the band doubling from the next band, then B3), as the
-    JAX function routes them host-side."""
-    from ..ops.edit_distance import _rerun_overflow_pairs, gathered_pairs
-    from ..ops.myers import myers_band_for, myers_pairs_device
-    from ..ops.wavefront import batched_levenshtein_kernel
-
-    mesh = _mesh_of(mesh)
-    seqs = np.asarray(seqs)
-    lens = np.asarray(lens, dtype=np.int32)
-    n = seqs.shape[0]
-    with span("kgt.pairs"):
-        with span("kgt.pairs.index"):
-            iu, ju = np.triu_indices(n, k=1)
-            n_pairs = len(iu)
-            mine = _rank_rows(np.stack([iu, ju], axis=1), mesh)
-        with span("kgt.pairs.upload"):
-            pool = torch.as_tensor(np.ascontiguousarray(seqs, dtype=np.int32), device=mesh.device)
-            pool_lens = torch.as_tensor(lens, device=mesh.device)
-        if band_k is not None:
-            band_k = myers_band_for(band_k) or 511
-            local = myers_pairs_device(pool, pool_lens, mine[:, 0], mine[:, 1], band_k=band_k)
-        else:
-            local = gathered_pairs(batched_levenshtein_kernel, pool, pool_lens,
-                                   mine[:, 0], mine[:, 1])
-        if mesh.group is not None:  # one rank alone holds every pair already
-            with span("kgt.pairs.gather_ranks"):
-                local = gather_rows(torch.as_tensor(local, device=mesh.device),
-                                    mesh).cpu().numpy()
-        with span("kgt.pairs.assemble"):
-            distances = local[:n_pairs].astype(np.int64)
-            pending = np.zeros(0, dtype=np.int64)
-            if band_k is not None:
-                ok = (distances <= band_k) & (np.abs(lens[iu] - lens[ju]) <= band_k)
-                pending = np.nonzero(~ok)[0]
-            out = np.zeros((n, n), dtype=np.float64)
-            out[iu, ju] = distances
-            out[ju, iu] = distances
-        if pending.size:
-            with span("kgt.pairs.rerun"):
-                bi, bj = iu[pending], ju[pending]
-                exact = _rerun_overflow_pairs(seqs[bi], lens[bi], seqs[bj], lens[bj], band_k,
-                                              mesh.device)
-                out[bi, bj] = exact
-                out[bj, bi] = exact
-    return out
+    over the ranks of `mesh` (or on a device, one rank on it): the (n, n)
+    symmetric float64 matrix on every rank. The classification scale-out,
+    ops.edit_distance.pairwise_distance_matrix with the mesh as its device:
+    kernel B1's pair pool at the smallest Myers band >= band_k, the pairs
+    outside the band's contract re-run exactly after the gather on every
+    rank, as the JAX function routes them host-side (kernel B3 when band_k
+    is None)."""
+    return pairwise_distance_matrix(seqs, lens, band_k=band_k, device=mesh)

@@ -12,8 +12,8 @@ Names start with `kgt.`, the prefix of the port's C entry points:
   kgt.step (.upload, .apply, .translate, .distance, .checks): the forward
       step (ops/pipeline.py);
   kgt.pairs (.index, .upload, .gather, .distance, .fetch, .gather_ranks,
-      .rerun, .assemble): the all-pairs matrix (parallel/mesh.py
-      sharded_pairwise_distances, ops/edit_distance.py gathered_pairs);
+      .rerun, .assemble): the all-pairs matrix of either metric
+      (ops/edit_distance.py pairwise_distance_matrix and gathered_pairs);
   kgt.mutate (.capture, .dispatch, .fetch, .unpack): the product pass
       (analysis/lib_seqmutation.py MutateGenes.mutate_transcripts);
   kgt.inbreed (.select, .upload, .gather, .ritland, .simple, .hallme,

@@ -1,6 +1,5 @@
 """The two bodies of kernels B1, B4 and B5 side by side, the walk kernel, the
-first design of the MICA kernel beside the one the port runs, and the two
-designs of the chunk kernel of the sharded long-pair wavefront.
+MICA kernel, and the chunk kernel of the sharded long-pair wavefront.
 
     python3 scripts/torch_kernel_bodies.py [--quick] [--sass] [--mica-order] [--chunk] [--local]
 
@@ -9,34 +8,27 @@ Then, on the card:
 
   1. holds each body of B1 (group: a pair over NB lanes of a warp; thread:
      a pair a thread), of B4 and of B5 (warp: a pair a warp; block: a pair
-     a block), and both designs of the walk kernel, against the plain PyTorch versions at
-     S = 3,000 (exact), and both designs of the MICA kernel (csrc/mica.cu:
-     kgt_mica on compact rows, and kgt_mica_tiles, the first design on
-     padded lists, reachable only from here: mica_tiles, and
-     mica_first_design with its sort; chip_smoke.py's phase 3f times them
-     from here) against mica_plain;
+     a block), and the walk kernel, against the plain PyTorch versions at
+     S = 3,000 (exact), and the MICA kernel (csrc/mica.cu: kgt_mica on
+     compact rows) against mica_plain;
   2. times both bodies of B1 over a grid of pair counts for every band,
      with one shared text and with per-pair texts, on the device alone (a
      CUDA graph replay), and prints which body the launcher's rule takes
      at each: the rule's thresholds (group_max_pairs in csrc/myers.cu)
      were set from this table;
   3. times both bodies of B4 at bands 31 to 255, and the walk kernel
-     (csrc/walk.cu: kgt_walk, step-major tapes and an early exit) beside
-     its first design (kgt_walk_pair_major, reachable only from here:
-     walk_pair_major; chip_smoke.py's phase 4 times it from here) at
-     phase 4's shape, warm and right after a fresh B4;
+     (csrc/walk.cu: kgt_walk, step-major tapes and an early exit) at
+     chip_smoke.py phase 4's shape, warm and right after a fresh B4;
   4. times both bodies of B5 over 256, 4,096 and 32,640 pairs of 3,000
      bases at bands 31 to 255.
 
   5. times the chunk kernel (csrc/sharded_wavefront.cu: kgt_wavefront_chunk,
-     4 lanes a thread, a warp exchange every 32 steps) in turns with its
-     first design (kgt_wavefront_chunk_lane, one lane a thread and a block
-     barrier a diagonal, reachable only from here: chunk_lane), both held
-     against chunk_plain, on the middle chunk (128 diagonals) of
-     chip_smoke.py's 32,768-base pair from the pair's real DP state; then
-     the new body at every count of warps a block (the table behind
-     chunk_geometry's rule) and the cooperative route (kgt_wavefront_chunks)
-     at 8 and 64 chunks a launch and over the whole pair.
+     4 lanes a thread, a warp exchange every 32 steps), held against
+     chunk_plain, on the middle chunk (128 diagonals) of chip_smoke.py's
+     32,768-base pair from the pair's real DP state; then at every count
+     of warps a block (the table behind chunk_geometry's rule), and the
+     cooperative route (kgt_wavefront_chunks) at 8 and 64 chunks a launch
+     and over the whole pair.
 
   6. (--local) holds kernel `local` (csrc/wavefront.cu, kgt_local) in
      every layout of its table (ops/local.py LOCAL_LAYOUTS) that holds the
@@ -50,11 +42,11 @@ Then, on the card:
 chip_smoke.py phase 3f's 8,192 rows as the port orders them (each tile's
 rows by length inside the block) and with all rows put in one order by
 length first, the alternative the design did not take, with each order's
-lane slots, shared memory and blocks an SM. --sass writes the machine code of the new bodies, of both
-MICA kernels (csrc/mica.cu; chip_smoke.py's MICA_MERGE_OPS counts the merge loop of
+lane slots, shared memory and blocks an SM. --sass writes the machine code of the new bodies, of
+the MICA kernel (csrc/mica.cu; chip_smoke.py's MICA_MERGE_OPS counts the merge loop of
 mica_rows_kernel) and of B3 and the local kernel at one and two slots a lane
 (csrc/wavefront.cu), and of both chunk kernels, as cuobjdump prints it, to a
-sass_<kernel>.txt file each first, with the instructions of the new chunk
+sass_<kernel>.txt file each first, with the instructions of the chunk
 body's loop of 32 steps (128 cells a thread) counted.
 Needs a CUDA device.
 """
@@ -88,46 +80,9 @@ from kgl_gene_tpu_torch.ops.sharded_wavefront import (  # noqa: E402
     CHUNK_EXCHANGE_STEPS, CHUNK_LANES_A_THREAD,
 )
 from kgl_gene_tpu_torch.ops.similarity import (  # noqa: E402
-    ancestor_lists, id_order, mica, mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
+    ancestor_lists, mica, mica_plain, mica_rows, mica_smem_bytes, mica_tile, row_set,
 )
 from kgl_gene_tpu_torch.ops.traceback import tb_walk, tb_walk_plain  # noqa: E402
-
-
-def mica_tiles(ids, ic):
-    """The first design of the MICA kernel (kgt_mica_tiles: a block per 16
-    x 16 tile of pairs on padded (rows, K) lists) on one row set whose rows
-    id_order has sorted: (rows, rows) float32 in one launch, counted as
-    "mica_tiles"."""
-    n, K = ids.shape
-    out = torch.empty(n, n, dtype=torch.float32, device=ids.device)
-    kernels.launch("mica_tiles", "kgt_mica_tiles", ids.device, ids.data_ptr(), ic.data_ptr(), n,
-                   K, ids.data_ptr(), ic.data_ptr(), n, K, out.data_ptr(), 1)
-    return out
-
-
-def walk_pair_major(codes, la, lb, *, band_k, max_steps):
-    """The walk's first design (kgt_walk_pair_major: every pair all
-    max_steps trips, (B, max_steps) tapes) on tb_walk's arguments: the
-    same (ops, counts), counted as "walk_pair_major"."""
-    M, B, W = codes.shape
-    ops = torch.empty((B, max_steps), dtype=torch.uint8, device=codes.device)
-    counts = torch.empty((B, max_steps), dtype=torch.int32, device=codes.device)
-    kernels.launch("walk_pair_major", "kgt_walk_pair_major", codes.device, codes.data_ptr(),
-                   codes.stride(0), codes.stride(1), M, W, la.data_ptr(), lb.data_ptr(),
-                   ops.data_ptr(), counts.data_ptr(), B, band_k, max_steps)
-    return ops, counts
-
-
-def chunk_lane(s, d0):
-    """The chunk kernel's first design (kgt_wavefront_chunk_lane: a lane a
-    thread, one block barrier a diagonal, halos up to 512) on chunk's
-    arguments: the same contract as sharded_wavefront.chunk_plain, counted
-    as "wavefront_chunk_lane"."""
-    B, W = s.a_lane.shape
-    kernels.launch("wavefront_chunk_lane", "kgt_wavefront_chunk_lane", s.a_lane.device,
-                   s.a_lane.data_ptr(), s.b.data_ptr(), s.b.stride(0), s.Mb, s.la.data_ptr(),
-                   s.lb.data_ptr(), s.pp.data_ptr(), s.p.data_ptr(), s.out_pp.data_ptr(),
-                   s.out_p.data_ptr(), s.result.data_ptr(), B, W, s.i0, s.Ma, d0, s.H)
 
 
 def chunk_state(dev, halo=128):
@@ -144,8 +99,7 @@ def chunk_state(dev, halo=128):
 
 
 def time_chunk(dev):
-    """Step 5: the chunk kernel's two designs in turns, the warps a block,
-    the cooperative route."""
+    """Step 5: the chunk kernel, the warps a block, the cooperative route."""
     from chip_smoke import time_device
 
     from kgl_gene_tpu_torch.ops import sharded_wavefront as sw
@@ -154,24 +108,21 @@ def time_chunk(dev):
     B, W = s.a_lane.shape
     outs = {name: s._replace(out_pp=s.out_pp.clone(), out_p=s.out_p.clone(),
                              result=s.result.clone())
-            for name in ("new", "lane", "plain")}
-    bodies = {"new": lambda: sw.chunk(outs["new"], d0), "lane": lambda: chunk_lane(outs["lane"], d0)}
+            for name in ("new", "plain")}
+
+    def body():
+        return sw.chunk(outs["new"], d0)
+
     sw.chunk_plain(outs["plain"], d0)
-    for name, body in bodies.items():
-        body()
-        for key in ("out_p", "out_pp"):
-            if not torch.equal(getattr(outs[name], key)[:, s.H:],
-                               getattr(outs["plain"], key)[:, s.H:]):
-                raise AssertionError(f"the chunk kernel's {name} body differs from chunk_plain")
+    body()
+    for key in ("out_p", "out_pp"):
+        if not torch.equal(getattr(outs["new"], key)[:, s.H:], getattr(outs["plain"], key)[:, s.H:]):
+            raise AssertionError("the chunk kernel differs from chunk_plain")
     cells = sum(min(d, s.Ma) - max(0, d - s.Mb) + 1 for d in range(d0, d0 + s.H))
     print(f"chunk {c} of {s.n_chunks} of the {s.Ma}-base pair (H={s.H}, {W - s.H} lanes, "
-          f"{cells} cells): both bodies equal to chunk_plain", flush=True)
-    turns = {name: [] for name in bodies}
-    for _ in range(3):
-        for name in ("new", "lane", "lane", "new"):
-            turns[name].append(time_device([bodies[name]], 20, windows=3))
-    for name, ms in turns.items():
-        print(f"  {name} body device ms: {' / '.join(f'{x:.6f}' for x in ms)}", flush=True)
+          f"{cells} cells): equal to chunk_plain", flush=True)
+    ms = [time_device([body], 20, windows=3) for _ in range(3)]
+    print(f"  device ms: {' / '.join(f'{x:.6f}' for x in ms)}", flush=True)
     rule = sw.chunk_geometry(W - s.H, s.H, B, torch.cuda.get_device_properties(dev).multi_processor_count)
     row = []
     for warps in range(1, 13):
@@ -185,7 +136,7 @@ def time_chunk(dev):
             s.i0, s.Ma, d0, s.H, 0, s.H, warps)], 20, windows=3)
         T = sw.block_lanes(warps) - s.H
         row.append(f"{warps}: {ms:.6f} ({-(-(W - s.H) // T)} tiles)")
-    print(f"  new body by warps a block (rule: {rule}): " + ", ".join(row), flush=True)
+    print(f"  by warps a block (rule: {rule}): " + ", ".join(row), flush=True)
     for n in (8, 64):
         o = outs["new"]
         ms = time_device([lambda n=n: kernels.launch(
@@ -225,11 +176,6 @@ def loop_counts(sass):
         key = (-sum(o.startswith("SHFL") for o in body), len(body))
         best = key if best is None or key < best else best
     return (best[1], -best[0]) if best else (0, 0)
-
-
-def mica_first_design(ids, ic):
-    """The first design's wrapper: id_order on the card, then mica_tiles."""
-    return mica_tiles(*id_order(ids, ic))
 
 
 def mutants(rng, B, edits):
@@ -276,10 +222,9 @@ def check(dev):
                       banded_distance(*args, band_k=k, _body=body), want)
     codes = banded_choices(a, la, b, lb, band_k=127)
     want = tb_walk_plain(codes, la, lb, band_k=127, max_steps=300)
-    for name, walk in (("kgt_walk", tb_walk), ("kgt_walk_pair_major", walk_pair_major)):
-        got = walk(codes, la, lb, band_k=127, max_steps=300)
-        exact(f"walk ops, {name} (B=64, k=127, 300 steps)", got[0], want[0])
-        exact(f"walk counts, {name}", got[1], want[1])
+    got = tb_walk(codes, la, lb, band_k=127, max_steps=300)
+    exact("walk ops, kgt_walk (B=64, k=127, 300 steps)", got[0], want[0])
+    exact("walk counts, kgt_walk", got[1], want[1])
     lists = np.full((300, 192), -1, np.int32)
     for r in range(300):
         L = int(rng.integers(0, 193))
@@ -287,10 +232,9 @@ def check(dev):
     ids = torch.as_tensor(lists, device=dev)
     ic = torch.as_tensor((rng.random(lists.shape) * 8).astype(np.float32), device=dev)
     want = mica_plain(ids, ic, ids, ic)
-    for name, got in (("kgt_mica", mica(ids, ic)), ("kgt_mica_tiles", mica_first_design(ids, ic))):
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} differs from mica_plain (n=300, K=192)")
-        print(f"{name} (n=300, K=192): equal to mica_plain")
+    if not torch.equal(mica(ids, ic), want):
+        raise AssertionError("kgt_mica differs from mica_plain (n=300, K=192)")
+    print("kgt_mica (n=300, K=192): equal to mica_plain")
     torch.cuda.synchronize()
 
 
@@ -332,32 +276,25 @@ def time_choices_and_walk(dev):
 
 
 def time_walk(dev):
-    """The walk kernel and its first design at chip_smoke.py phase 4's
-    shape (phase 3b's 256 mutants against their reference, band 127, 275
-    steps), in turns: on the device with the codes in the L2 (a CUDA
-    graph of back-to-back walks), and each walk right after a fresh B4
-    over the same inputs, as reference_cigars runs it."""
+    """The walk kernel at chip_smoke.py phase 4's shape (phase 3b's 256
+    mutants against their reference, band 127, 275 steps): on the device
+    with the codes in the L2 (a CUDA graph of back-to-back walks), and
+    each walk right after a fresh B4 over the same inputs, as
+    reference_cigars runs it."""
     from chip_smoke import WALK_COLD_REPS, family_walk_case, time_after, time_device
 
     choices, rl, plens, k, steps = family_walk_case(dev)
     codes = choices()
-    walks = {"kgt_walk": tb_walk, "kgt_walk_pair_major": walk_pair_major}
     want = tb_walk_plain(codes, rl, plens, band_k=k, max_steps=steps)
-    for name, walk in walks.items():
-        got = walk(codes, rl, plens, band_k=k, max_steps=steps)
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"{name} differs from tb_walk_plain at phase 4's shape")
-    calls = [lambda walk=walk: walk(codes, rl, plens, band_k=k, max_steps=steps)
-             for walk in walks.values()]
-    warm = {name: [] for name in walks}
-    for _ in range(2):
-        for name, call in zip(walks, calls):
-            warm[name].append(time_device([call], 10, windows=3))
-    cold = time_after(choices, [lambda c, walk=walk: walk(c, rl, plens, band_k=k, max_steps=steps)
-                                for walk in walks.values()], WALK_COLD_REPS)
-    for (name, ms), cold_ms in zip(warm.items(), cold):
-        print(f"walk {name}, B={len(rl)} k={k} {steps} steps: device ms warm "
-              f"{' / '.join(f'{x:.6f}' for x in ms)}, right after B4 {cold_ms:.6f}", flush=True)
+    got = tb_walk(codes, rl, plens, band_k=k, max_steps=steps)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("kgt_walk differs from tb_walk_plain at phase 4's shape")
+    warm = [time_device([lambda: tb_walk(codes, rl, plens, band_k=k, max_steps=steps)], 10,
+                        windows=3) for _ in range(2)]
+    cold_ms, = time_after(choices, [lambda c: tb_walk(c, rl, plens, band_k=k, max_steps=steps)],
+                          WALK_COLD_REPS)
+    print(f"walk kgt_walk, B={len(rl)} k={k} {steps} steps: device ms warm "
+          f"{' / '.join(f'{x:.6f}' for x in warm)}, right after B4 {cold_ms:.6f}", flush=True)
 
 
 def time_banded(dev):
@@ -500,13 +437,10 @@ def dump_sass():
     for chunk in text.split("\t\tFunction : ")[1:]:
         name = chunk.split("\n", 1)[0]
         for key in ("myers_group_kernelILi3E", "banded_warp_kernelILi8ELb1E",
-                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "walk_pair_major_kernel",
-                    "mica_kernelILi16E",
-                    "mica_rows_kernel", "bitvector_kernelILi32ELi1ELb0E",
+                    "banded_warp_kernelILi8ELb0E", "walk_kernel", "mica_rows_kernel", "bitvector_kernelILi32ELi1ELb0E",
                     "bitvector_kernelILi32ELi2ELb0E",
                     *(f"bitvector_kernelILi{G}ELi{K}ELb1E" for G, K in LOCAL_LAYOUTS),
-                    "wavefront_chunk_kernel", "wavefront_chunks_kernel",
-                    "wavefront_chunk_lane_kernel"):
+                    "wavefront_chunk_kernel", "wavefront_chunks_kernel"):
             if key in name:
                 with open(os.path.join(out_dir, f"sass_{key}.txt"), "w") as f:
                     f.write(chunk)

@@ -1,8 +1,14 @@
 """The port's transcript-family path against the JAX package's, on the
-CPU: TranscriptFamilyAnalysis (global and local), the all-pairs matrix on
-both routes, the Myers pool driver and band doubling, the local metric,
-and UPGMA/Newick. Distances, CIGARs, Newick strings and report bytes are
-exact, so they must be equal."""
+CPU: TranscriptFamilyAnalysis (global and local), the all-pairs matrix of
+both metrics on every route, on a device and on a mesh of one rank, the
+Myers pool driver and band doubling, the local metric, and UPGMA/Newick.
+Distances, CIGARs, Newick strings and report bytes are exact, so they must
+be equal."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +39,10 @@ from kgl_gene_tpu_torch.ops.edit_distance import (
     pairwise_distance_matrix,
 )
 from kgl_gene_tpu_torch.ops.myers import adaptive_myers_levenshtein, myers_pairs_device
+from kgl_gene_tpu_torch.parallel.dist import SampleMesh
 from kgl_gene_tpu_torch.sequence.alphabet import DNA5
+
+REPO = Path(__file__).resolve().parent.parent
 
 LETTERS = np.array(list("ACGTN"))
 
@@ -127,16 +136,70 @@ def _pool(seed=3, n=8):
     return seqs, np.array([len(r) for r in rows], np.int32)
 
 
-@pytest.mark.parametrize("band_k", [None, 63])
-def test_pairwise_distance_matrix(band_k):
-    seqs, lens = _pool()
-    got = pairwise_distance_matrix(seqs, lens, band_k=band_k, device="cpu")
-    want = j_pairwise(seqs, lens, band_k=band_k)
+def _one_base_too(seqs, lens, code):
+    """The pool with a one-base row `code` appended."""
+    row = np.zeros((1, seqs.shape[1]), seqs.dtype)
+    row[0, 0] = code
+    return np.vstack([seqs, row]), np.append(lens, 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("metric, band_k, seed", [
+    ("global", None, 3), ("global", 63, 3), ("local", None, 3), ("local", None, 9)],
+    ids=["None", "63", "local-3", "local-9"])
+def test_pairwise_distance_matrix(metric, band_k, seed):
+    """Global: the JAX matrix and the DP. Local, on ragged rows with an
+    empty and a one-base row: every entry the numpy DP's and the JAX
+    package's batched_levenshtein_local. Both symmetric, zero diagonal."""
+    seqs, lens = _pool(seed=seed)
+    if metric == "local":
+        seqs, lens = _one_base_too(seqs, lens, code=seed % 4)
+    got = pairwise_distance_matrix(seqs, lens, band_k=band_k, device="cpu", metric=metric)
     assert got.dtype == np.float64
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, got.T)
+    assert not np.diag(got).any()
     iu, ju = np.triu_indices(len(lens), k=1)
-    oracle = [levenshtein_numpy(seqs[i, : lens[i]], seqs[j, : lens[j]]) for i, j in zip(iu, ju)]
-    np.testing.assert_array_equal(got[iu, ju], oracle)
+    rows = [(seqs[i, : lens[i]], seqs[j, : lens[j]]) for i, j in zip(iu, ju)]
+    if metric == "local":
+        assert {0, 1} <= set(lens.tolist())
+        np.testing.assert_array_equal(got[iu, ju],
+                                      np.asarray(j_local(seqs[iu], lens[iu], seqs[ju], lens[ju])))
+        np.testing.assert_array_equal(got[iu, ju], [levenshtein_local_numpy(a, b) for a, b in rows])
+    else:
+        np.testing.assert_array_equal(got, j_pairwise(seqs, lens, band_k=band_k))
+        np.testing.assert_array_equal(got[iu, ju], [levenshtein_numpy(a, b) for a, b in rows])
+
+
+@pytest.mark.parametrize("metric, band_k", [("local", 63), ("hamming", None)])
+def test_pairwise_distance_matrix_refuses_a_band_or_metric_it_lacks(metric, band_k):
+    seqs, lens = _pool()
+    with pytest.raises(ValueError):
+        pairwise_distance_matrix(seqs, lens, band_k=band_k, device="cpu", metric=metric)
+
+
+@pytest.mark.parametrize("metric, band_k", [("global", 63), ("local", None)])
+def test_pairwise_distance_matrix_on_a_mesh_of_one_rank(metric, band_k):
+    """A SampleMesh of one rank as the device gives the device's matrix
+    (the banded route with its overflow re-run, and the local route)."""
+    seqs, lens = _pool(seed=5)
+    got = pairwise_distance_matrix(seqs, lens, band_k=band_k, device=SampleMesh.single("cpu"),
+                                   metric=metric)
+    np.testing.assert_array_equal(
+        got, pairwise_distance_matrix(seqs, lens, band_k=band_k, device="cpu", metric=metric))
+
+
+def test_edit_distance_imports_no_mesh_module():
+    """ops sits below parallel.mesh: importing the all-pairs matrix loads
+    parallel.dist only."""
+    code = ("import sys\n"
+            "import kgl_gene_tpu_torch.ops.edit_distance\n"
+            "assert 'kgl_gene_tpu_torch.parallel.dist' in sys.modules\n"
+            "assert 'kgl_gene_tpu_torch.parallel.mesh' not in sys.modules\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("band_k", [31, 127])

@@ -12,9 +12,8 @@ thread to the left, the warps' 8 halo lanes refreshed every 8 steps, the
 steps with no edge selects, the capture and the owned-lane stores with the
 sentinel off the table), held against
 chunk_plain chunk by chunk, a chunk as the wrapper runs it (sub-steps past
-MAX_SUB_HALO) and a run of chunks as the cooperative launch runs it;
-wavefront_chunk_mirror mirrors the first design (kgt_wavefront_chunk_lane,
-one lane a thread). Change them with the kernels.
+MAX_SUB_HALO) and a run of chunks as the cooperative launch runs it.
+Change it with the kernel.
 """
 
 import re
@@ -128,53 +127,6 @@ def _simulate(seq_a, la, seq_b, lb, world, halo, step):
     return states, sum(s.result for s in states).numpy()
 
 
-def wavefront_chunk_mirror(s: sw.RankLanes, d0: int) -> None:
-    """The first design's launch (kgt_wavefront_chunk_lane, one lane a
-    thread, one block barrier a diagonal), block by block and lane by lane
-    in numpy, on the same buffers as chunk."""
-    a_lane, b, la, lb = (x.numpy() for x in (s.a_lane, s.b, s.la, s.lb))
-    in_pp, in_p = s.pp.numpy(), s.p.numpy()
-    out_pp, out_p, result = s.out_pp.numpy(), s.out_p.numpy(), s.result.numpy()
-    B, W = a_lane.shape
-    H = s.H
-    n = min(512 if H <= 256 else 1024, -(-W // 32) * 32)  # threads a block
-    T = n - H
-    big = s.Ma + s.Mb + 1
-    for pair in range(B):
-        for tile in range(-(-(W - H) // T)):
-            k0 = tile * T
-            m = np.arange(n)
-            k = k0 + m
-            i = s.i0 + k
-            in_w = k < W
-            kc = np.minimum(k, W - 1)
-            lane_ok = in_w & (i >= 0) & (i <= s.Ma)
-            ac = np.where(in_w, a_lane[pair, kc], -1)
-            p = np.where(in_w, in_p[pair, kc], big)
-            left_pp = np.where((m > 0) & in_w, in_pp[pair, np.maximum(kc - 1, 0)], big)
-            pp = np.where(in_w, in_pp[pair, kc], big)
-            j_lo = d0 - (s.i0 + k0) - (n - 1)
-            jx = j_lo + np.arange(n + H - 1)
-            sb = np.where((jx >= 1) & (jx <= s.Mb),
-                          b[pair, np.clip(jx - 1, 0, b.shape[1] - 1)], -2)
-            capture = (m >= H) & in_w & (i == la[pair])
-            for t in range(H):
-                d = d0 + t
-                left_p = np.concatenate([[big], p[:-1]])  # the buffer of step t
-                j = d - i
-                cand = np.minimum(np.minimum(left_p, p) + 1,
-                                  left_pp + (ac != sb[t - m + n - 1]))
-                cand = np.where(j == 0, i, cand)
-                cand = np.where(i == 0, j, cand)
-                cand = np.where(lane_ok & (j >= 0) & (j <= s.Mb), cand, big)
-                if d == la[pair] + lb[pair] and capture.any():
-                    result[pair] = cand[capture][0]
-                left_pp, pp, p = left_p, p, cand
-            own = (m >= H) & in_w
-            out_p[pair, k[own]] = p[own]
-            out_pp[pair, k[own]] = pp[own]
-
-
 def _ragged(extra=()):
     """Ragged pairs: empty, one base, several tiles of a rank; `extra`
     (length of a, length of b) pairs after them."""
@@ -206,15 +158,6 @@ def _mirror_chunk_by_chunk(world, halo, step, extra=()):
     want = [levenshtein_numpy(a, b) for a, b in zip(a_rows, b_rows)]
     assert sum(s.result for s in plain).tolist() == want
     assert sum(s.result for s in mirror).tolist() == want
-
-
-@pytest.mark.parametrize("world, halo", [(1, 32), (1, 300), (2, 32), (3, 128), (4, 600)])
-def test_kernel_mirror_equals_plain_chunk_by_chunk(world, halo):
-    """The first design's tiling on ragged pairs (empty, one base, several
-    tiles of a rank, a halo wider than a rank's lanes): every rank's owned
-    lanes after every chunk and the distances equal chunk_plain's and the
-    DP's."""
-    _mirror_chunk_by_chunk(world, halo, wavefront_chunk_mirror)
 
 
 def chunk_launch_mirror(s: sw.RankLanes, src, dst, d0: int, h: int, k_first: int,
@@ -349,7 +292,7 @@ def chunks_launch_mirror(s: sw.RankLanes, c0: int, n: int, sms: int) -> sw.RankL
     (3, 128, 6, 512), (3, 128, 132, 50), (3, 1024, 132, 512), (4, 300, 132, 512),
     (4, 600, 6, 512)])
 def test_new_body_mirror_equals_plain_chunk_by_chunk(world, halo, sms, max_sub, monkeypatch):
-    """The redesigned kernel's schedule on the ragged pairs at worlds 1-4,
+    """The kernel's schedule on the ragged pairs at worlds 1-4,
     halos 32 to 1,024 and the tile geometry of a card of `sms` SMs (6: wide
     blocks of several warps at every halo): every rank's owned lanes after
     every chunk and the distances equal chunk_plain's and the DP's. A chunk
@@ -390,8 +333,8 @@ def test_multi_chunk_mirror_equals_run_chunk(halo, sms, runs):
 @pytest.mark.parametrize("halo", (600, 1024))
 @pytest.mark.parametrize("name", ("small_pairs", "related_4000"))
 def test_one_rank_halo_past_the_first_cap_equals_jax_and_oracle(name, halo):
-    """sharded_levenshtein at world 1 with halos the first design's kernel
-    refused on the card (over 512) equals the JAX package's and the DP."""
+    """sharded_levenshtein at world 1 with halos over one launch's 512
+    diagonals (sub-steps) equals the JAX package's and the DP."""
     (a, la, b, lb, _h), _a, _b = CASES[name]
     got = sw.sharded_levenshtein(a, la, b, lb, mesh=SampleMesh.single("cpu"), halo=halo)
     want = j_sharded(a, la, b, lb, mesh=Mesh(np.array(jax.devices()), ("wave",)), halo=halo)
