@@ -161,7 +161,19 @@ and read just after where it launches a kernel:
      unless every F lies within 1e-4 of the plain version's, a call
      launches loglik 41 times and nothing else, and the estimate counts
      145 evaluations and 41 passes. It prints the kernel's time beside its
-     bound and the plain version's, and a {"loglik": {...}} line.
+     bound and the plain version's, and a {"loglik": {...}} line;
+ 11. kernel hallme (phase 3k, csrc/hallme.cu): the HallME estimator against
+     its plain version (stats/inbreeding.py _hall_me_rows_plain, eager
+     float32) and the benchmark's float64 reference (port_bench/reference/
+     inbreed.py hall_me) on the card, on ragged shapes (both load widths)
+     with every mask form, codes past 2 and the int32 view, then at the
+     INBREED cell's 2,504 x 25,000 shape; then one InbreedAnalysis.estimate,
+     counts from 0. It fails unless every F lies within 1e-3 of the plain
+     version's and of the reference's, a call launches hallme once a step
+     and nothing else (the profiler's kernels a call: hallme's and at most
+     the one fill of its counters), and the estimate counts a pass a step.
+     It prints the time a step and a call beside the byte bound and the
+     plain version's, and a {"hallme": {...}} line.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -208,7 +220,8 @@ sizes, checks and the MICA kernel's times and bounds), one
 {"checkpoint_local": {...}} (phase 3g's seconds and checks), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
 one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
-{"loglik": {...}} (phase 3j's checks), one {"kernels": [...]} of fifteen
+{"loglik": {...}} (phase 3j's checks), one {"hallme": {...}} (phase 3k's
+checks and times), one {"kernels": [...]} of sixteen
 rows (`local` at B = 256 against the shared reference and `local_pool` over the 32,640 pairs, each at 3,000 and at
 2,181 bases with the layout the rule took in `geometry`, are the local
 kernel's; the rows of
@@ -222,7 +235,9 @@ chunk of the 32,768-base pair from its DP state; wavefront_chunks,
 the cooperative route, times 8 chunks of that pair in one launch and
 carries the whole pair's wall split into the launch's device time and the
 host's rest; loglik's bound_ms is the larger of its byte and float64
-floors, beside each in bytes_bound_ms and fp64_bound_ms), the
+floors, beside each in bytes_bound_ms and fp64_bound_ms; hallme's row
+times a call at the cell's shape, its bound the codes read once a step),
+the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
 is no CUDA device, when the port is missing, or when any phase fails.
@@ -4590,7 +4605,7 @@ def phase_loglik(dev, errs):
     kernels.reset_launches()
     est = analysis.estimate(columns, "ALL")
     torch.cuda.synchronize()
-    path = dict(kernels.LAUNCHES)
+    path = {k: n for k, n in kernels.LAUNCHES.items() if k != "hallme"}  # phase 3k's
     counted = {k: inb.COUNTERS[k] - before.get(k, 0)
                for k in ("loglik_evaluations", "loglik_passes")}
     if path != {"loglik": LOGLIK_PASSES} or counted != {
@@ -4616,6 +4631,195 @@ def phase_loglik(dev, errs):
     return row, path["loglik"], summary
 
 
+# Phase 3k: kernel `hallme` (csrc/hallme.cu) at the INBREED cell's shape,
+# LOGLIK_SHAPE's codes from the same seed; small shapes (G a multiple of 4
+# and not, so both load widths) and every mask form first. Its bound: the
+# codes read once a step against the card's bytes a second.
+HALLME_LIMIT = 1e-3  # reference/inbreed.py TOLERANCE["HallME"]
+
+
+def hallme_reference(z, p, valid):
+    """The reference's F on the cells the mask keeps (a locus left out is
+    not one of the genome's loci), a genome at a time where the mask is a
+    genome's; on the card."""
+    import torch
+
+    from port_bench.reference import inbreed as reference
+
+    L, G = z.shape
+    codes = z.to(torch.uint8)
+    if valid is None or valid.shape[1] == 1 or valid.stride(1) == 0:
+        keep = torch.ones(L, dtype=torch.bool, device=z.device) if valid is None else valid[:, 0]
+        loci = torch.nonzero(keep).flatten().cpu().numpy()
+        return reference.hall_me(codes, loci, p.double().cpu().numpy()[loci])[0]
+    out = []
+    for g in range(G):
+        loci = torch.nonzero(valid[:, g]).flatten().cpu().numpy()
+        out.append(reference.hall_me(codes[:, g:g + 1], loci, p.double().cpu().numpy()[loci])[0])
+    return torch.cat(out)
+
+
+def hallme_cases(dev):
+    """(name, z, p, valid) on the card: ragged genome and locus counts (a
+    multiple of 4 genomes takes the 4-byte loads), every mask form
+    run_estimators passes, codes past 2, and the int32 view run_estimator
+    hands on."""
+    import torch
+
+    cases = []
+    for L, G in ((1, 1), (37, 11), (260, 33), (3_000, 256), (3_000, 257), (5_003, 1)):
+        z, p = loglik_codes(L, G, LOGLIK_SEED + 7 * L + G, dev)
+        z[:, 0] = torch.where(torch.rand(L, device=dev) < p, 2, 0)  # all homozygous: f near 1
+        if G > 2:
+            z[:, 1] = 1  # all heterozygous: term 0
+        locus = torch.rand(L, device=dev) < 0.8
+        genome = torch.rand((L, G), device=dev) < 0.8
+        genome[:, -1] = False  # no valid locus: n = 0
+        cases += [(f"{L}x{G} none", z, p, None),
+                  (f"{L}x{G} per locus", z, p, locus[:, None]),
+                  (f"{L}x{G} per locus, broadcast", z, p, locus[:, None].expand(L, G)),
+                  (f"{L}x{G} per genome", z, p, genome)]
+    z, p = loglik_codes(400, 40, LOGLIK_SEED + 3, dev)
+    z[::7, ::3] = 3
+    z[::11, ::5] = 255
+    cases.append(("400x40 codes past 2", z, p, None))
+    z, p = loglik_codes(300, 20, LOGLIK_SEED + 4, dev)
+    cases.append(("300x20 int32 transposed", z.t().to(torch.int32).contiguous().t(), p, None))
+    return cases
+
+
+def hallme_profile(fn):
+    """(device ms of each hallme launch, names of the call's other device
+    kernels) of one call of fn, from the profiler's CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    steps, other = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "hallme_step_kernel" in e.name:
+            steps.append(e.device_time / 1e3)
+        elif not e.name.startswith("Memcpy"):
+            other.append(e.name)
+    return steps, other
+
+
+def phase_hallme(dev, errs):
+    """Kernel `hallme` against the plain version (stats/inbreeding.py
+    _hall_me_rows_plain, eager float32) and the float64 reference on the
+    card: the cases of hallme_cases, then LOGLIK_SHAPE; its time a step and
+    a call beside the byte bound and the plain version's; then an INBREED
+    estimate, counts from 0, which must launch `hallme` once a step besides
+    kernel `loglik`, count a pass a step and give the plain version's
+    HallME F. Returns (the kernels row, launches on the estimate path,
+    summary)."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.analysis.inbreed_analysis import InbreedAnalysis
+    from kgl_gene_tpu_torch.app.runtime import ParameterMap
+    from kgl_gene_tpu_torch.stats import inbreeding as inb
+
+    def gap(name, got, want):
+        d = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        if got.shape != want.shape or not d <= HALLME_LIMIT:
+            raise AssertionError(f"hallme {name}: |dF| {d} over {HALLME_LIMIT}")
+        return d
+
+    def counted(fn):
+        before = dict(inb.COUNTERS)
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(kernels.LAUNCHES), {
+            k: inb.COUNTERS[k] - before.get(k, 0)
+            for k in ("hallme_steps", "hallme_passes", "hallme_stop_reads",
+                      "hallme_tiles_skipped")}
+
+    worst = worst_ref = 0.0
+    for name, z, p, valid in hallme_cases(dev):
+        got, launches, counts = counted(lambda: inb._hall_me_rows(z, p, valid))
+        if launches != {"hallme": counts["hallme_steps"]} or (
+                counts["hallme_passes"] != counts["hallme_steps"]):
+            raise AssertionError(f"hallme {name}: launched {launches}, counted {counts}")
+        worst = max(worst, gap(name, got, inb._hall_me_rows_plain(z, p, valid)))
+        worst_ref = max(worst_ref, gap(name + " (reference)", got, hallme_reference(z, p, valid)))
+    log(f"  small cases: largest |dF| {worst:.3e} against the plain version, {worst_ref:.3e} "
+        f"against the reference")
+
+    L, G = LOGLIK_SHAPE
+    z, p = loglik_codes(L, G, LOGLIK_SEED, dev)
+    kernel = lambda: inb._hall_me_rows(z, p, None)  # noqa: E731
+    plain = lambda: inb._hall_me_rows_plain(z, p, None)  # noqa: E731
+    want = plain()
+    got, launches, counts = counted(kernel)
+    full = gap(f"{L}x{G}", got, want)
+    full_ref = gap(f"{L}x{G} (reference)", got, hallme_reference(z, p, None))
+    steps = counts["hallme_steps"]
+    if launches != {"hallme": steps} or counts["hallme_passes"] != steps or (
+            counts["hallme_stop_reads"] != steps // inb._EM_CHECK_EVERY + 1):
+        raise AssertionError(f"hallme: a call launched {launches}, counted {counts}")
+    errs["hallme"] = max(worst, worst_ref, full, full_ref)
+    step_ms, other = hallme_profile(kernel)
+    if len(step_ms) != steps or len(other) > 1:
+        raise AssertionError(f"hallme: the profiler saw {len(step_ms)} hallme launches of "
+                             f"{steps} steps and the kernels {other}")
+    ms = time_cuda(kernel, 3)
+    plain_ms = time_cuda(plain, 1, windows=2)
+    step_bound_ms = G * L / MEM_BYTES_PER_S * 1e3
+    bound_ms = steps * step_bound_ms
+    device_ms = sum(step_ms)
+    log(f"  {L} loci x {G} genomes: {steps} steps, |dF| {full:.3e} (reference {full_ref:.3e}); "
+        f"a call {ms:.4f} ms (device {device_ms:.4f}), a step {statistics.median(step_ms):.4f} ms "
+        f"on the device (first {step_ms[0]:.4f}, last {step_ms[-1]:.4f}), byte bound "
+        f"{step_bound_ms:.4f} a step, {bound_ms:.4f} a call; plain {plain_ms:.2f} ms; "
+        f"tiles skipped {counts['hallme_tiles_skipped']}; other kernels {other}")
+
+    # The estimate path: INBREED's own stages over columns on the card.
+    V = LOGLIK_PATH_VARIANTS
+    codes, _p = loglik_codes(V, G, LOGLIK_SEED + 2, dev)
+    af = codes.sum(1, dtype=torch.int64).cpu().numpy() / (2.0 * G)
+    analysis = InbreedAnalysis(dev)
+    params = {"Algorithm": "ALL", "MinAF": "0.05", "SamplingDistance": str(LOGLIK_PATH_SPACING)}
+    if not analysis.initialize_analysis(".", [ParameterMap("INBREED", {
+            k: [v] for k, v in params.items()})], None):
+        raise AssertionError("hallme: INBREED refused its parameters")
+    columns = analysis.prepare_columns(codes, np.arange(V, dtype=np.int64), np.zeros(V, np.int32),
+                                       np.ones(V, bool), [f"G{g}" for g in range(G)], {"ALL": af})
+    analysis.estimate(columns, "ALL")  # warm
+    est, path, path_counts = counted(lambda: analysis.estimate(columns, "ALL"))
+    if path != {"loglik": LOGLIK_PASSES, "hallme": path_counts["hallme_steps"]} or (
+            path_counts["hallme_passes"] != path_counts["hallme_steps"]) or (
+            path_counts["hallme_stop_reads"]
+            != path_counts["hallme_steps"] // inb._EM_CHECK_EVERY + 1):
+        raise AssertionError(f"hallme: the estimate launched {path}, counted {path_counts}")
+    index = torch.as_tensor(est.loci, device=dev)
+    p_sel = torch.as_tensor(est.minor_freq.astype(np.float32), device=dev)
+    path_gap = gap("estimate path", torch.as_tensor(est.f[:, est.algorithms.index("HallME")]),
+                   inb._hall_me_rows_plain(codes.index_select(0, index), p_sel, None).cpu())
+    log(f"  InbreedAnalysis.estimate over {len(est.loci)} loci: launches {path}, counters "
+        f"{path_counts}, HallME |dF| against the plain version {path_gap:.3e}")
+    row = {"name": "hallme", "route": "CUDA", "source": "kgl_gene_tpu_torch/csrc/hallme.cu",
+           "replaces": "none (kgl_gene_tpu/stats/inbreeding.py HallME is XLA, a while_loop)",
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+           "library_ms": None, "issue_bound_ms": None, "device_ms": device_ms,
+           "step_device_ms": statistics.median(step_ms), "step_bound_ms": step_bound_ms,
+           "max_abs_err_f": errs["hallme"], "shape": [L, G]}
+    summary = {"small_cases_max_df": worst, "small_cases_max_df_reference": worst_ref,
+               "full_max_df": full, "full_max_df_reference": full_ref, "full_steps": steps,
+               "full_counters": counts, "full_other_kernels": other,
+               "step_device_ms": statistics.median(step_ms), "step_bound_ms": step_bound_ms,
+               "call_ms": ms, "call_device_ms": device_ms, "plain_ms": plain_ms,
+               "estimate_loci": len(est.loci), "estimate_launches": path,
+               "estimate_counters": path_counts, "estimate_max_df": path_gap}
+    return row, path["hallme"], summary
+
+
 def main() -> int:
     try:
         import torch
@@ -4636,7 +4840,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
                           "myers_pool", "walk", "mica", "local", "local_pool",
-                          "wavefront_chunk", "wavefront_chunks", "loglik"), 0)
+                          "wavefront_chunk", "wavefront_chunks", "loglik", "hallme"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -4754,6 +4958,13 @@ def main() -> int:
         loglik["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3j: {loglik['phase_s']:.1f} s")
 
+        phase = "kernel hallme: the INBREED estimators' HallME"
+        log(f"phase 3k: {phase}")
+        t0 = time.perf_counter()
+        hallme_row, launches["hallme"], hallme = phase_hallme(dev, errs)
+        hallme["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3k: {hallme['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -4763,6 +4974,7 @@ def main() -> int:
         rows += phase_local_times(dev, local_state, errs)
         rows += chunk_kernel_rows
         rows.append(loglik_row)
+        rows.append(hallme_row)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -4810,6 +5022,7 @@ def main() -> int:
     print(json.dumps({"package": package}))
     print(json.dumps({"multidevice": multidevice}))
     print(json.dumps({"loglik": loglik}))
+    print(json.dumps({"hallme": hallme}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

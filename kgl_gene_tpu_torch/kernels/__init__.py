@@ -91,6 +91,9 @@ _SIGNATURES = {
     # codes, G, L, valid, mask, chunk_loci, terms, partial, tickets, lo, hi,
     # out (null but on the last step), stream: one golden-section step
     "kgt_loglik_step": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # codes, G, L, af, valid, mask, wide (4-byte row loads), chunk_loci, first,
+    # state, partial, tickets, running, skipped, stream: one HallME step
+    "kgt_hallme_step": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
     # by chip_smoke.py for the walk's latency bound
     "kgt_chase": (_P, _I, _I, _P, _P),
@@ -110,6 +113,9 @@ _SIGNATURES = {
     # kind (0 the grid, 1 a step), mask -> blocks of the Loglikelihood
     # kernel an SM of the current device holds; no launch
     "kgt_loglik_blocks": (_I, _I),
+    # mask, wide -> blocks of a HallME step an SM of the current device
+    # holds; no launch
+    "kgt_hallme_blocks": (_I, _I),
     # band_k -> 1 (warp body) or 0 (block); no launch
     "kgt_banded_body": (_I,),
     "kgt_banded_choices_body": (_I,),

@@ -14,9 +14,12 @@ and not by L; per-genome sums accumulate over the blocks.
 
   - HallME iterates every genome until its own stop test holds (|f -
     prev| <= 1e-4, or 1,000 steps); a genome that stopped is frozen while
-    the others run on, as JAX's while_loop under vmap does. A step is one
-    pass over the blocks; the host reads "any genome still running" every
-    _EM_CHECK_EVERY steps.
+    the others run on, as JAX's while_loop under vmap does. The host reads
+    "any genome still running" every _EM_CHECK_EVERY steps. On the card a
+    step is kernel `hallme` (csrc/hallme.cu): one launch, one pass over the
+    codes, the update in the same launch, and a tile of genomes that has
+    all stopped reads no code. A CPU tensor takes the plain version,
+    _hall_me_rows_plain: a step is a pass over the blocks, in eager float32.
   - Loglikelihood scans a 65-point grid of f, takes the first best point,
     then refines by 40 golden-section steps, the objective in float64. On
     the card it is kernel `loglik` (csrc/loglik.cu): 41 passes over the
@@ -27,7 +30,10 @@ and not by L; per-genome sums accumulate over the blocks.
     block (_GRID_CHUNK_ELEMENTS cells of (points, loci, genomes) at most).
 
 COUNTERS counts, over the process, the loci estimated (a call's L), the
-HallME steps run and the host reads of its stop test, the log-likelihood
+HallME steps run and the host reads of its stop test (the first, at step
+0, holds with no read on the card: every genome starts running), the
+kernel's HallME passes (a launch a step; none in the plain version) and
+the tile passes its stopped tiles saved (read once a call), the log-likelihood
 evaluations (one f point for every genome: 145 a call) and the
 log-likelihood passes over the codes (a block of the plain version's
 evaluations, or a launch of the kernel); spans (tracing.span) name each
@@ -60,6 +66,7 @@ __all__ = [
     "ritland_f",
     "simple_f",
     "hall_me_f",
+    "hallme_geometry",
     "loglikelihood_f",
     "inbreeding_all",
     "run_estimator",
@@ -86,6 +93,13 @@ LOGLIK_POINT_GROUPS = 3
 LOGLIK_GROUP_POINTS = 22  # a grid block's points, 66 with the pad
 LOGLIK_TABLE_LOCI = 16
 LOGLIK_GROUP = 16
+# Kernel `hallme` (csrc/hallme.cu, HM_*): warps a block (each takes a
+# chunk's rows in turn), genomes a thread (one 4-byte load a row), genomes
+# a tile (a warp's width), rows of a warp in flight.
+HALLME_WARPS = 8
+HALLME_VEC = 4
+HALLME_TILE = 128
+HALLME_ROWS = 4
 
 # Work counted over the process (as kernels.LAUNCHES counts launches).
 COUNTERS: collections.Counter = collections.Counter()
@@ -183,7 +197,7 @@ def _simple_rows(z, p, valid):
     return torch.where(denom != 0, (obs_hom - exp_hom) / denom, 0.0)
 
 
-def _hall_me_rows(z, p, valid):
+def _hall_me_rows_plain(z, p, valid):
     G = z.shape[1]
     n = _valid_loci(z, valid)
     f = torch.full((G,), 0.25, dtype=p.dtype, device=z.device)
@@ -287,9 +301,10 @@ def loglik_geometry(G: int, L: int, sms: int, grid_blocks: int,
 
 
 def _mask_form(valid):
-    """(mask, bool tensor) as kernel `loglik` takes a mask: 0 and None where
-    every cell counts, 1 and (L,) where the mask is a locus's (given as (L,),
-    (L, 1) or broadcast over the genomes with stride 0), 2 and (L, G)."""
+    """(mask, bool tensor) as kernels `loglik` and `hallme` take a mask: 0
+    and None where every cell counts, 1 and (L,) where the mask is a locus's
+    (given as (L,), (L, 1) or broadcast over the genomes with stride 0), 2
+    and (L, G)."""
     if valid is None:
         return 0, None
     if valid.dim() == 2 and valid.shape[1] > 1 and valid.stride(1) != 0:
@@ -354,6 +369,83 @@ def _loglik_rows(z, p, valid):
     if z.device.type == "cpu":
         return _loglik_rows_plain(z, p, valid)
     return _loglik_rows_kernel(z, p, valid)
+
+
+def hallme_geometry(G: int, L: int, sms: int, blocks_an_sm: int) -> tuple[int, int]:
+    """(tiles, chunk loci) of kernel `hallme` for G genomes and L loci on a
+    card of `sms` SMs that holds blocks_an_sm blocks of a step an SM: a
+    tile is HALLME_TILE genomes, and a tile's loci are cut into as many
+    chunks as keep every block of a step on the card at once (one wave),
+    a chunk a multiple of HALLME_WARPS x HALLME_ROWS loci (each warp's rows
+    whole groups in flight)."""
+    tiles = _ceil_div(G, HALLME_TILE)
+    unit = HALLME_WARPS * HALLME_ROWS
+    chunks = max(1, sms * blocks_an_sm // tiles)
+    return tiles, max(unit, _ceil_div(_ceil_div(L, chunks), unit) * unit)
+
+
+# (device index, mask, wide) -> (SMs, blocks of a HallME step an SM)
+_HALLME_BLOCKS: Dict[tuple, tuple] = {}
+
+
+def _hall_me_rows_kernel(z, p, valid):
+    """_hall_me_rows_plain's result from kernel `hallme`: a launch a step,
+    each counted as a step and a pass; every _EM_CHECK_EVERY steps one read
+    of each tile's running genomes (and the tiles skipped so far), which
+    waits for the steps before it. z (L, G) codes (taken as uint8), p (L,)
+    AF (taken as float32), valid as run_estimators passes it. Raises
+    unless the tensors lie on the card."""
+    L, G = z.shape
+    codes = z if z.dtype == torch.uint8 else z.to(torch.uint8)
+    codes, af = codes.contiguous(), p.to(torch.float32).contiguous()
+    mask, mask_t = _mask_form(valid)
+    kernels.check_args(torch.uint8, codes=codes)
+    kernels.check_args(torch.float32, af=af)
+    dev = z.device
+    if G == 0:
+        COUNTERS["hallme_stop_reads"] += 1  # no genome runs
+        return torch.empty(0, dtype=torch.float32, device=dev)
+    valid_ptr = None if mask_t is None else mask_t.data_ptr()
+    wide = G % HALLME_VEC == 0 and codes.data_ptr() % 4 == 0 and (
+        mask != 2 or valid_ptr % 4 == 0)
+    key = (dev.index, mask, wide)
+    if key not in _HALLME_BLOCKS:
+        with torch.cuda.device(dev):
+            _HALLME_BLOCKS[key] = (torch.cuda.get_device_properties(dev).multi_processor_count,
+                                   kernels.library().kgt_hallme_blocks(mask, int(wide)))
+    tiles, chunk_loci = hallme_geometry(G, L, *_HALLME_BLOCKS[key])
+    chunks = max(1, _ceil_div(L, chunk_loci))
+    padded = tiles * HALLME_TILE
+    state = torch.empty((4, padded), dtype=torch.float32, device=dev)  # f, prev, n, steps
+    partial = torch.empty(chunks * 2 * padded, dtype=torch.float64, device=dev)
+    # tickets (tiles), then each tile's running genomes (tiles) and the tiles skipped
+    ints = torch.zeros(2 * tiles + 1, dtype=torch.int32, device=dev)
+    tickets, read = ints[:tiles], ints[tiles:]
+    args = (codes.data_ptr(), G, L, af.data_ptr(), valid_ptr, mask, int(wide), chunk_loci)
+    tail = (state.data_ptr(), partial.data_ptr(), tickets.data_ptr(), read.data_ptr(),
+            read[tiles:].data_ptr())
+    for step in range(_EM_MAX_ITER):
+        if step % _EM_CHECK_EVERY == 0:
+            COUNTERS["hallme_stop_reads"] += 1
+            if step:
+                counts = read.cpu().numpy()
+                if not counts[:tiles].any():
+                    break
+        kernels.launch("hallme", "kgt_hallme_step", dev, *args, int(step == 0), *tail)
+        COUNTERS["hallme_steps"] += 1
+        COUNTERS["hallme_passes"] += 1
+    else:
+        counts = read.cpu().numpy()  # the cap: the last steps ran past the last read
+    COUNTERS["hallme_tiles_skipped"] += int(counts[tiles])
+    return state[0, :G]
+
+
+def _hall_me_rows(z, p, valid):
+    """The HallME estimator: the plain version for a CPU tensor, kernel
+    `hallme` for any other (which raises off the card)."""
+    if z.device.type == "cpu":
+        return _hall_me_rows_plain(z, p, valid)
+    return _hall_me_rows_kernel(z, p, valid)
 
 
 _ESTIMATORS = {
