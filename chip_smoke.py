@@ -173,7 +173,21 @@ and read just after where it launches a kernel:
      and nothing else (the profiler's kernels a call: hallme's and at most
      the one fill of its counters), and the estimate counts a pass a step.
      It prints the time a step and a call beside the byte bound and the
-     plain version's, and a {"hallme": {...}} line.
+     plain version's, and a {"hallme": {...}} line;
+ 12. kernels fws_variants and fws_genomes (phase 3l, csrc/fws.cu): the
+     PfEMP statistics' two passes against their plain versions
+     (stats/fws.py _variant_counts_plain, _genome_partials_plain) on the
+     card, each pair on the same codes, mask and variant order, on ragged
+     shapes with codes 0..3 and random subsets and then at the Pf7 cell's
+     whole population (16,203 genomes x 2,000,000 variants, 32.4 GB) for
+     every genome and for a 65% subset, where fws_statistics on the card is
+     also held against the benchmark's float64 reference
+     (port_bench/reference/fws.py), and at small shapes against the same
+     call on the CPU; then one PfEMPAnalysis.statistics, counts from 0. It fails unless every count is exact, the hs sums lie
+     within 1e-12 (relative) of the plain version's, every FWS within 1e-11,
+     and the call launches each kernel once and counts two passes. It
+     prints each kernel's time beside its byte bound and the plain
+     versions', and a {"fws": {...}} line.
 
 B1 (banded Myers), B4 (traceback codes) and B5 (banded distance) each
 have two bodies that their launchers choose between from the shapes
@@ -221,7 +235,8 @@ sizes, checks and the MICA kernel's times and bounds), one
 {"package": {...}} (phase 3h's seconds by analysis, files and launches),
 one {"multidevice": {...}} (phase 3i's checks, ranks and times), one
 {"loglik": {...}} (phase 3j's checks), one {"hallme": {...}} (phase 3k's
-checks and times), one {"kernels": [...]} of sixteen
+checks and times), one {"fws": {...}} (phase 3l's checks and times), one
+{"kernels": [...]} of seventeen
 rows (`local` at B = 256 against the shared reference and `local_pool` over the 32,640 pairs, each at 3,000 and at
 2,181 bases with the layout the rule took in `geometry`, are the local
 kernel's; the rows of
@@ -236,7 +251,9 @@ the cooperative route, times 8 chunks of that pair in one launch and
 carries the whole pair's wall split into the launch's device time and the
 host's rest; loglik's bound_ms is the larger of its byte and float64
 floors, beside each in bytes_bound_ms and fp64_bound_ms; hallme's row
-times a call at the cell's shape, its bound the codes read once a step),
+times a call at the cell's shape, its bound the codes read once a step;
+fws's row times both passes at the Pf7 cell's shape over every genome, its
+bound the codes read once a pass),
 the
 card's name and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result, when there
@@ -4820,6 +4837,182 @@ def phase_hallme(dev, errs):
     return row, path["hallme"], summary
 
 
+
+# Phase 3l: kernels `fws_variants` and `fws_genomes` (csrc/fws.cu), the two
+# passes of the PfEMP statistics, against their plain versions on the card:
+# ragged shapes with codes 0..3 and random subsets, then FWS_SHAPE, the Pf7
+# cell's whole population (16,203 genomes x 2,000,000 variants, 32.4 GB of
+# codes) drawn from FWS_SEED, for the cell's two sets (every genome, and a
+# 65% subset); then PfEMPAnalysis.statistics over those codes, counts from
+# 0. Each kernel's bound: the codes read once, at the card's bytes a second.
+FWS_SEED = 26
+FWS_SHAPE = (2_000_000, 16_203)  # variants, genomes
+FWS_SUBSET = 0.65  # the cell's qc_monoclonal share of genomes
+FWS_LIMIT = 1e-11  # port_bench/drivers/pfemp_fws.py FWS_LIMIT
+
+
+def fws_codes(V, G, seed, dev, codes_max=2):
+    """Codes (V, G) uint8 in the resident layout on the card, from the seed:
+    each variant's AF a uniform cubed, a code two draws at it (capped at
+    codes_max, or 3 drawn at a few cells where codes_max is 3)."""
+    import torch
+
+    from kgl_gene_tpu_torch.variant.columnar import resident_codes
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    codes = resident_codes(V, G, dev)
+    for v0 in range(0, V, 8192):
+        v1 = min(V, v0 + 8192)
+        p = torch.rand((v1 - v0, 1), generator=gen, device=dev) ** 3
+        z = ((torch.rand((v1 - v0, G), generator=gen, device=dev) < p).to(torch.uint8)
+             + (torch.rand((v1 - v0, G), generator=gen, device=dev) < p).to(torch.uint8))
+        if codes_max == 3:
+            z[torch.rand((v1 - v0, G), generator=gen, device=dev) < 0.02] = 3
+        codes[v0:v1] = z
+    return codes
+
+
+def phase_fws(dev, errs):
+    """Kernels `fws_variants` and `fws_genomes` against the plain versions
+    (stats/fws.py _variant_counts_plain, _genome_partials_plain) on the card,
+    each pair on the same codes, mask and variant order, and fws_statistics
+    on the card against the same call on the CPU (small shapes) and against
+    the benchmark's float64 reference; at FWS_SHAPE for both of the cell's
+    sets, with the kernels' times there beside the byte bound and the plain
+    versions'; then a PfEMPAnalysis.statistics call, counts from 0, which
+    must launch each kernel once and count two passes. Returns (the kernels
+    row, launches on the analysis's path, summary)."""
+    import torch
+
+    from kgl_gene_tpu_torch import kernels
+    from kgl_gene_tpu_torch.analysis.pfemp_analysis import PfEMPAnalysis
+    from kgl_gene_tpu_torch.stats import fws
+    from port_bench.reference import fws as reference
+
+    def subset_mask(G, idx):
+        mask = torch.zeros(-(-G // fws.GENOME_TILE) * fws.GENOME_TILE, dtype=torch.uint8,
+                           device=dev)
+        mask[torch.as_tensor(idx, device=dev)] = 1
+        return mask
+
+    def compare(name, codes, mask, n):
+        """Both passes, kernel and plain, on the same codes, mask and order:
+        counts exactly, hs sums within 1e-12 (relative). Returns (the
+        largest relative gap, pass one's arguments, pass two's)."""
+        G = codes.shape[1]
+        counts = fws._variant_counts(codes, mask)
+        if not torch.equal(counts, fws._variant_counts_plain(codes, mask)):
+            raise AssertionError(f"fws {name}: variant counts differ from the plain version's")
+        af = (counts[0] + 2 * counts[1].long()).double() / max(2 * n, 1)
+        hs = 2.0 * af * (1.0 - af)
+        order, bounds, _bins = fws.segment_bounds(fws.frequency_bins(af))
+        args = (codes, order, hs[order], bounds, mask.shape[0])
+        (h1, m1, a1), (h0, m0, a0) = fws._genome_partials(*args), fws._genome_partials_plain(*args)
+        if not (torch.equal(h1[:, :G], h0[:, :G]) and torch.equal(m1[:, :G], m0[:, :G])):
+            raise AssertionError(f"fws {name}: genome counts differ from the plain version's")
+        rel = float(((a1 - a0).abs() / a0.abs().clamp_min(1e-300))[:, :G].max()) if G else 0.0
+        if not rel <= 1e-12:
+            raise AssertionError(f"fws {name}: hs sums {rel} from the plain version's")
+        return rel, (codes, mask), args
+
+    def call_against(name, codes, idx, host_codes=None):
+        """fws_statistics on the card against the reference (and against the
+        same call on host_codes, the CPU's, where given): counts exactly,
+        the largest FWS gap returned."""
+        got = fws.fws_statistics(codes, idx)
+        want = reference.statistics(codes, idx)
+        others = [{k: want[k].cpu().numpy() for k in ("het_bins", "hom_bins", "het", "hom")}]
+        others[0]["variant_counts"] = torch.stack(
+            [want["variant_het"], want["variant_hom"]]).cpu().numpy()
+        fws_want = [want["fws"].cpu().numpy()]
+        if host_codes is not None:
+            host = fws.fws_statistics(host_codes, idx)
+            others.append({k: getattr(host, k) for k in others[0]})
+            fws_want.append(host.fws)
+        for other in others:
+            for field, value in other.items():
+                if not np.array_equal(getattr(got, field), value):
+                    raise AssertionError(f"fws {name}: {field} differs")
+        gap = max(float(np.abs(got.fws - w).max(initial=0.0)) for w in fws_want)
+        if not gap <= FWS_LIMIT:
+            raise AssertionError(f"fws {name}: FWS {gap} from the reference's or the CPU's")
+        return gap
+
+    worst = 0.0
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(FWS_SEED)
+    for V, G in ((1, 1), (37, 11), (3_000, 257), (5_003, 2_048), (9_000, 3_001)):
+        codes = fws_codes(V, G, FWS_SEED + V + G, dev, codes_max=3)
+        keep = np.flatnonzero(torch.rand(G, generator=gen).numpy() < 0.6)
+        worst = max(worst, compare(f"{V}x{G}", codes, subset_mask(G, keep), len(keep))[0])
+    call_gap = 0.0
+    for V, G in ((37, 11), (9_000, 3_001)):
+        codes = fws_codes(V, G, FWS_SEED + 2 * V + G, dev)
+        idx = np.flatnonzero(np.random.default_rng(V).random(G) < 0.6)
+        call_gap = max(call_gap, call_against(f"{V}x{G}", codes, idx, codes.cpu()))
+    log(f"  small cases: counts exact, hs sums within {worst:.3e} (relative) of the plain "
+        f"version, FWS within {call_gap:.3e} of the reference's and the CPU's")
+
+    del codes
+    torch.cuda.empty_cache()  # the codes below take 32.4 GB
+    V, G = FWS_SHAPE
+    codes = fws_codes(V, G, FWS_SEED, dev)
+    index = np.sort(np.random.default_rng(FWS_SEED).choice(G, round(FWS_SUBSET * G),
+                                                            replace=False))
+    pass_bound_ms = V * G / MEM_BYTES_PER_S * 1e3
+    times = {}
+    for name, idx in (("all", np.arange(G)), ("subset", index)):
+        rel, variants_args, genomes_args = compare(f"{V}x{G} {name}", codes,
+                                                   subset_mask(G, idx), len(idx))
+        worst = max(worst, rel)
+        call_gap = max(call_gap, call_against(f"{V}x{G} {name}", codes, idx))
+        variants_ms, genomes_ms = time_cuda_turns(
+            [lambda: fws._variant_counts(*variants_args),
+             lambda: fws._genome_partials(*genomes_args)], 5)
+        plain_ms = time_cuda(lambda: (fws._variant_counts_plain(*variants_args),
+                                      fws._genome_partials_plain(*genomes_args)), 1, windows=2)
+        times[name] = {"genomes": len(idx), "variants_ms": variants_ms,
+                       "genomes_ms": genomes_ms, "plain_ms": plain_ms}
+        log(f"  {name} ({len(idx)} genomes) at {V} x {G}: counts exact and hs sums within "
+            f"{rel:.3e} of the plain version, FWS within {call_gap:.3e} of the reference; "
+            f"fws_variants {variants_ms:.4f} ms, fws_genomes {genomes_ms:.4f} ms, byte bound "
+            f"{pass_bound_ms:.4f} ms a pass; plain {plain_ms:.2f} ms")
+        del variants_args, genomes_args
+    errs["fws"] = call_gap
+
+    analysis = PfEMPAnalysis(dev)
+    ids = [f"G{g:05d}" for g in range(G)]
+    columns = analysis.prepare_columns(codes, ids)
+    analysis.statistics(columns)  # warm
+    before = dict(fws.COUNTERS)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = analysis.statistics(columns)
+    call_s = time.perf_counter() - t0
+    path = dict(kernels.LAUNCHES)
+    counted = {k: fws.COUNTERS[k] - before.get(k, 0) for k in ("genomes", "passes")}
+    if path != {"fws_variants": 1, "fws_genomes": 1} or counted != {"genomes": G, "passes": 2}:
+        raise AssertionError(f"fws: the statistics launched {path}, counted {counted}")
+    log(f"  PfEMPAnalysis.statistics over {G} genomes: launches {path}, counters {counted}, "
+        f"{call_s * 1e3:.2f} ms host-timed, {int(result.het.sum())} heterozygous calls")
+    peak = torch.cuda.max_memory_allocated(dev)
+    whole = times["all"]
+    row = {"name": "fws", "route": "CUDA", "source": "kgl_gene_tpu_torch/csrc/fws.cu",
+           "replaces": "none (kgl_gene_tpu/stats/fws.py CalcFWS is numpy on the host)",
+           "ms": whole["variants_ms"] + whole["genomes_ms"], "plain_ms": whole["plain_ms"],
+           "bound_ms": 2 * pass_bound_ms, "bound_by": "bytes", "library_ms": None,
+           "issue_bound_ms": None, "variants_ms": whole["variants_ms"],
+           "genomes_ms": whole["genomes_ms"], "pass_bound_ms": pass_bound_ms,
+           "subset_ms": times["subset"]["variants_ms"] + times["subset"]["genomes_ms"],
+           "max_abs_err_f": call_gap, "shape": [V, G]}
+    summary = {"shape": [V, G], "max_rel_hs": worst, "max_fws_gap": call_gap, "sets": times,
+               "pass_bound_ms": pass_bound_ms, "statistics_launches": path,
+               "statistics_counters": counted, "statistics_host_ms": call_s * 1e3,
+               "memory_peak_bytes": peak}
+    return row, 2, summary
+
+
 def main() -> int:
     try:
         import torch
@@ -4840,7 +5033,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     errs = dict.fromkeys(("translate", "myers", "wavefront", "banded", "banded_choices",
                           "myers_pool", "walk", "mica", "local", "local_pool",
-                          "wavefront_chunk", "wavefront_chunks", "loglik", "hallme"), 0)
+                          "wavefront_chunk", "wavefront_chunks", "loglik", "hallme", "fws"), 0)
     launches = {}  # kernel row -> launches on the path it belongs to
     phase = "build"
     t_start = time.perf_counter()
@@ -4965,6 +5158,13 @@ def main() -> int:
         hallme["phase_s"] = time.perf_counter() - t0
         log(f"  phase 3k: {hallme['phase_s']:.1f} s")
 
+        phase = "kernels fws: the PfEMP statistics' two passes"
+        log(f"phase 3l: {phase}")
+        t0 = time.perf_counter()
+        fws_row, launches["fws"], fws_summary = phase_fws(dev, errs)
+        fws_summary["phase_s"] = time.perf_counter() - t0
+        log(f"  phase 3l: {fws_summary['phase_s']:.1f} s")
+
         phase = "times"
         log(f"phase 4: {phase} (card: {card})")
         t0 = time.perf_counter()
@@ -4975,6 +5175,7 @@ def main() -> int:
         rows += chunk_kernel_rows
         rows.append(loglik_row)
         rows.append(hallme_row)
+        rows.append(fws_row)
         log(f"  phase 4: {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 - report the failing phase and exit non-zero
         traceback.print_exc()
@@ -5023,6 +5224,7 @@ def main() -> int:
     print(json.dumps({"multidevice": multidevice}))
     print(json.dumps({"loglik": loglik}))
     print(json.dumps({"hallme": hallme}))
+    print(json.dumps({"fws": fws_summary}))
     print(json.dumps({"kernels": report}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

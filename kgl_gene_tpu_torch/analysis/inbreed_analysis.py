@@ -23,7 +23,7 @@ stats/inbreeding.py: the four estimators run as PyTorch on the
 analysis's device, in two stages. prepare, once a population: its
 per-variant columns (InbreedColumns), the genomes' codes put on the device
 once, variant-major (V, G) uint8, built block by block through
-VariantMajorCSR (no G x V temporary on the host), or columns handed in
+VariantMajorCSR.device_codes (no G x V temporary on the host), or columns handed in
 directly (InbreedColumns.on_device). estimate, once a parameter set: the
 loci selected on the host from the (V,) columns, their index and AF
 uploaded, their codes gathered on the device into one (L, G) block, the
@@ -45,12 +45,12 @@ from ..stats.frequency import SUPER_POPULATIONS, FrequencyDatabaseRead
 from ..stats.inbreeding import _ESTIMATORS, inbreeding_all, run_estimators
 from ..tracing import span
 from ..utils.logging import log
-from ..variant.columnar import VariantMajorCSR
+from ..variant.columnar import BLOCK_VARIANTS, VariantMajorCSR
 
 __all__ = ["InbreedAnalysis", "InbreedColumns", "InbreedEstimate"]
 
 # Variants densified and uploaded at a time while a population is prepared.
-PREPARE_BLOCK_VARIANTS = 1 << 16
+PREPARE_BLOCK_VARIANTS = BLOCK_VARIANTS
 
 
 @dataclass
@@ -104,14 +104,9 @@ class InbreedColumns:
         """A PopulationDB's columns, None where it holds no variant. The codes
         go to the device a block of variants at a time from the CSR."""
         csr = VariantMajorCSR(population)
-        V, G = csr.variant_count, csr.genome_count
-        if V == 0:
+        if csr.variant_count == 0:
             return None
-        dev = resolve_device(device)
-        codes = torch.empty((V, G), dtype=torch.uint8, device=dev)
-        for v_lo in range(0, V, PREPARE_BLOCK_VARIANTS):
-            v_hi = min(v_lo + PREPARE_BLOCK_VARIANTS, V)
-            codes[v_lo:v_hi] = torch.from_numpy(csr.dense_block_t(v_lo, v_hi)).to(dev)
+        codes = csr.device_codes(resolve_device(device), PREPARE_BLOCK_VARIANTS)
         arena = population.arena
         frequencies = {}
         info = getattr(population, "info_store", None)

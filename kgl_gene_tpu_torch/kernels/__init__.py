@@ -94,6 +94,12 @@ _SIGNATURES = {
     # codes, G, L, af, valid, mask, wide (4-byte row loads), chunk_loci, first,
     # state, partial, tickets, running, skipped, stream: one HallME step
     "kgt_hallme_step": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # codes, V, G, row stride, mask, counts, stream: FWS pass one, each
+    # variant's codes 1 and 2 over the masked genomes
+    "kgt_fws_variants": (_P, _I, _I, _I, _P, _P, _P),
+    # codes, G, row stride, order, hs, bounds, S, Gp, het, hom, hs sums,
+    # stream: FWS pass two, each genome's sums over each segment of rows
+    "kgt_fws_genomes": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     # next, hops, l2_only, out, stream: a pointer chase of one thread, timed
     # by chip_smoke.py for the walk's latency bound
     "kgt_chase": (_P, _I, _I, _P, _P),

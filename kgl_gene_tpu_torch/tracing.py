@@ -19,7 +19,11 @@ Names start with `kgt.`, the prefix of the port's C entry points:
   kgt.inbreed (.select, .upload, .gather, .ritland, .simple, .hallme,
       .loglik, .fetch): one INBREED estimate, and kgt.inbreed.prepare, a
       population put on the device once (analysis/inbreed_analysis.py,
-      the estimators' stages in stats/inbreeding.py run_estimators).
+      the estimators' stages in stats/inbreeding.py run_estimators);
+  kgt.fws (.upload, .variants, .genomes, .fetch): one PfEMP statistics
+      call over a genome subset, and kgt.fws.prepare, a population put on
+      the device once (analysis/pfemp_analysis.py, the stages in
+      stats/fws.py fws_statistics).
 """
 
 from __future__ import annotations

@@ -13,6 +13,13 @@ the native library (native/: mark_presence, csr_build), which raises when
 it cannot be built; presence_plain and csr_triples_plain are the numpy
 plain versions the native functions are held against, and csr_triples_plain
 also builds a key space too wide for the native build's int32 ranks.
+
+The port adds the resident form of a population (VariantMajorCSR.
+device_codes): its (V, G) uint8 codes put on a device once, variant-major,
+a block of variants at a time, with each row starting ROW_ALIGN bytes
+after the last (resident_codes), so a kernel can read a row in 16-byte
+loads. The analyses that keep a population on the device (INBREED, the
+PfEMP statistics) build it there.
 """
 
 from __future__ import annotations
@@ -21,11 +28,34 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .db import PopulationDB
 
-__all__ = ["AlleleSummary", "VariantMajorView", "VariantMajorCSR", "csr_triples_plain",
-           "presence_plain"]
+__all__ = ["AlleleSummary", "BLOCK_VARIANTS", "ROW_ALIGN", "VariantMajorView", "VariantMajorCSR",
+           "csr_triples_plain", "presence_plain", "resident_codes"]
+
+# Variants densified and uploaded at a time when codes go to a device.
+BLOCK_VARIANTS = 1 << 16
+# Bytes between the starts of two rows of resident codes are a multiple of this.
+ROW_ALIGN = 16
+
+
+def resident_codes(variants: int, genomes: int, device, rows=None,
+                   block_variants: int = BLOCK_VARIANTS) -> torch.Tensor:
+    """A (variants, genomes) uint8 tensor on `device` whose rows start
+    ROW_ALIGN bytes apart at least: a view of the first `genomes` columns
+    of a buffer whose rows are padded to that multiple. Zeros, or filled
+    block_variants rows at a time from rows(v_lo, v_hi), a (v_hi - v_lo,
+    genomes) uint8 array or tensor, so that no more than a block is ever
+    held off the device."""
+    width = -(-max(genomes, 1) // ROW_ALIGN) * ROW_ALIGN
+    codes = torch.zeros((variants, width), dtype=torch.uint8, device=device)[:, :genomes]
+    if rows is not None:
+        for v_lo in range(0, variants, block_variants):
+            v_hi = min(v_lo + block_variants, variants)
+            codes[v_lo:v_hi] = torch.as_tensor(rows(v_lo, v_hi)).to(device)
+    return codes
 
 
 @dataclass
@@ -352,6 +382,13 @@ class VariantMajorCSR:
         block = np.zeros((v_hi - v_lo, self.genome_count), dtype=np.uint8)
         block[self.variant_of[lo:hi] - v_lo, self.genome_of[lo:hi]] = self.values[lo:hi]
         return block
+
+    def device_codes(self, device, block_variants: int = BLOCK_VARIANTS) -> torch.Tensor:
+        """The (V, G) uint8 codes on `device` (resident_codes' layout),
+        densified and uploaded block_variants rows at a time: no G x V
+        array on the host."""
+        return resident_codes(self.variant_count, self.genome_count, device,
+                              self.dense_block_t, block_variants)
 
     def iter_dense_blocks(self, block_variants: int = 4096):
         """Yield (v_lo, block) dense chunks sized for device shipping."""
